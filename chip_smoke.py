@@ -1,0 +1,469 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch/CUDA port (src/repro_torch) on one H100.
+
+    python3 chip_smoke.py
+
+Phases (any failure exits non-zero):
+  1. device   — a CUDA device of capability (9, 0); prints the card's name
+                and power limit as nvidia-smi reports them.
+  2. build    — compiles the port's CUDA kernels from src/repro_torch/csrc.
+  3. kernels  — each kernel against its plain PyTorch version on the card,
+                at the main path's shapes, with times (kernel, plain, one
+                PyTorch library call as a yardstick) and the bound.
+  4. serve    — the main path: full-width, 30-layer deepseek-7b in bf16 from
+                a seeded generator; ServeEngine(max_len=512, batch_size=4)
+                serves 6 requests of 16 new tokens; the kernel launch counts
+                of this run must be 61 RMSNorm and 30 attention per forward.
+  5. checks   — prefill/decode consistency at full width, and a small model
+                on the card against the same model on the CPU (plain path).
+  6. calibrate — a profiled decode step (device busy share, time by kernel)
+                and the decode-step latency curve at batch 1, 8, 32, 128.
+Then one line {"kernels": [...]} and, last, {"ok": true, "device": {...}}.
+
+Imports nothing of JAX or of the JAX package.
+"""
+from __future__ import annotations
+
+import json
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
+PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}  # dense bf16 tensor / fp32 non-tensor
+L2_FLUSH_BYTES = 64 << 20  # more than the 50 MB L2: every timed launch starts cold
+SPIN_CYCLES = 40_000_000  # about 20 ms of device time at the H100's clock
+
+
+def log(*args) -> None:
+    print(*args, flush=True)
+
+
+# --------------------------------------------------------------------------
+# timing and bounds
+# --------------------------------------------------------------------------
+
+
+class Timer:
+    def __init__(self, torch, device):
+        self.torch = torch
+        self.flush = torch.empty(L2_FLUSH_BYTES // 4, dtype=torch.float32, device=device)
+        torch.cuda._sleep(1000)  # load the spin kernel before any timing
+        self.flush.zero_()
+        torch.cuda.synchronize()
+
+    def ms(self, fn, iters: int = 20, warmup: int = 3) -> float:
+        """Median device time of one call, from CUDA events, with the L2
+        cache flushed before each call.  A spin kernel keeps the device busy
+        while the host queues every call, so host overhead between the
+        events does not count."""
+        torch = self.torch
+        for _ in range(warmup):
+            fn()
+        torch.cuda.synchronize()
+        torch.cuda._sleep(SPIN_CYCLES)
+        pairs = []
+        for _ in range(iters):
+            self.flush.zero_()
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            fn()
+            end.record()
+            pairs.append((start, end))
+        torch.cuda.synchronize()
+        times = sorted(s.elapsed_time(e) for s, e in pairs)
+        return times[len(times) // 2]
+
+
+def bound(bytes_moved: float, flops: float, dtype: str):
+    t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_FLOPS[dtype] * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+# --------------------------------------------------------------------------
+# phase 3: kernels against their plain versions
+# --------------------------------------------------------------------------
+
+
+def rmsnorm_cases(torch, ops, ref, timer, dev):
+    import torch.nn.functional as F
+
+    out = []
+    gen = torch.Generator(device=dev).manual_seed(1)
+    D = 4096
+    for dtype in ("bfloat16", "float32"):
+        tdt = getattr(torch, dtype)
+        for rows in (8, 37, 4096):
+            x = torch.randn(rows, D, generator=gen, device=dev).to(tdt)
+            scale = torch.randn(D, generator=gen, device=dev)
+            got = ops.rmsnorm(x, scale)
+            want = ref.rmsnorm_ref(x, scale)
+            torch.cuda.synchronize()
+            tol = 1e-5 if dtype == "float32" else 2e-2
+            err = (got.float() - want.float()).abs().max().item()
+            ok = torch.allclose(got.float(), want.float(), atol=tol, rtol=tol)
+            w = scale.to(tdt)
+            esize = x.element_size()
+            b_ms, b_by = bound(rows * D * 2 * esize + 4 * D, 4 * rows * D, "float32")
+            out.append(dict(
+                kernel="rmsnorm", case=f"{dtype} rows={rows} D={D}",
+                max_abs_err=err, tol=tol, ok=ok,
+                ms=timer.ms(lambda: ops.rmsnorm(x, scale)),
+                plain_ms=timer.ms(lambda: ref.rmsnorm_ref(x, scale)),
+                library_ms=timer.ms(lambda: F.rms_norm(x, (D,), w, 1e-6)),
+                bound_ms=b_ms, bound_by=b_by,
+            ))
+    return out
+
+
+def flash_cases(torch, ops, ref, timer, dev):
+    import torch.nn.functional as F
+
+    i32 = dict(dtype=torch.int32, device=dev)
+    decode_q = torch.tensor([17, 63, 128, 200, 255, 301, 390, 447], **i32)[:, None]
+    decode_kv = torch.where(torch.arange(512, **i32) < 448, torch.arange(512, **i32), -1)
+    cases = [
+        # name, B, Sq, T, H, G, K, dtype, window, q_pos, kv_pos
+        ("prefill", 1, 37, 37, 32, 32, 128, "bfloat16", None, None, None),
+        ("prefill", 1, 256, 256, 32, 32, 128, "bfloat16", None, None, None),
+        ("decode", 8, 1, 512, 32, 32, 128, "bfloat16", None, decode_q, decode_kv),
+        ("gqa", 2, 256, 256, 32, 8, 128, "bfloat16", None, None, None),
+        ("head_dim_64", 2, 100, 300, 16, 16, 64, "float32", None, None, None),
+        ("window", 1, 256, 256, 32, 32, 128, "bfloat16", 96, None, None),
+        ("fully_masked", 1, 1, 100, 32, 32, 128, "float32", None,
+         torch.tensor([5], **i32), torch.full((100,), -1, **i32)),
+    ]
+    gen = torch.Generator(device=dev).manual_seed(2)
+    out = []
+    for name, B, Sq, T, H, G, K, dtype, window, qpos, kvpos in cases:
+        tdt = getattr(torch, dtype)
+        q = torch.randn(B, Sq, H, K, generator=gen, device=dev).to(tdt)
+        k = torch.randn(B, T, G, K, generator=gen, device=dev).to(tdt)
+        v = torch.randn(B, T, G, K, generator=gen, device=dev).to(tdt)
+        if qpos is None:
+            qpos = torch.arange(T - Sq, T, **i32)
+            kvpos = torch.arange(T, **i32)
+        got = ops.flash_attention(q, k, v, qpos, kvpos, True, window)
+        want = ref.flash_attention_ref(q, k, v, qpos, kvpos, True, window)
+        torch.cuda.synchronize()
+        tol = 2e-5 if dtype == "float32" else 2e-2
+        err = (got.float() - want.float()).abs().max().item()
+        ok = bool(torch.isfinite(got).all()) and torch.allclose(
+            got.float(), want.float(), atol=tol, rtol=tol
+        )
+        if name == "fully_masked":  # -1e30 semantics: the mean of v, not NaN
+            mean_v = v.float().mean(1).repeat_interleave(H // G, dim=1)[:, None]
+            ok = ok and torch.allclose(got.float(), mean_v, atol=tol, rtol=tol)
+
+        mask = ref.attention_mask(qpos, kvpos, True, window)  # [Sq,T] or [B,Sq,T]
+        # the work this data needs: visible pairs, and every key for a row
+        # that sees none (it averages v over all T keys)
+        mask_b = mask.expand(B, Sq, T)
+        mask_b = mask_b | ~mask_b.any(dim=-1, keepdim=True)
+        pairs = int(mask_b.sum())
+        keys_needed = int(mask_b.any(dim=1).sum())  # per batch row, union over queries
+        esize = q.element_size()
+        moved = (2 * q.numel() * esize + 2 * keys_needed * G * K * esize
+                 + 4 * (qpos.numel() + kvpos.numel()))
+        b_ms, b_by = bound(moved, 4 * K * H * pairs, dtype)
+        lib_ms = None
+        if name != "fully_masked":  # SDPA gives NaN for a row with no key
+            qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+            attn_mask = mask[None, None] if mask.ndim == 2 else mask[:, None]
+            gqa = {"enable_gqa": True} if H != G else {}
+            lib_ms = timer.ms(lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, attn_mask=attn_mask, **gqa))
+        out.append(dict(
+            kernel="flash_attention",
+            case=f"{name} {dtype} B={B} Sq={Sq} T={T} H={H} G={G} K={K}"
+                 + (f" window={window}" if window else ""),
+            max_abs_err=err, tol=tol, ok=ok,
+            ms=timer.ms(lambda: ops.flash_attention(q, k, v, qpos, kvpos, True, window)),
+            plain_ms=timer.ms(lambda: ref.flash_attention_ref(q, k, v, qpos, kvpos, True, window)),
+            library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by,
+        ))
+    return out
+
+
+# --------------------------------------------------------------------------
+# phases 4-6
+# --------------------------------------------------------------------------
+
+
+def serve(torch, np, cfg, params, ops):
+    from repro_torch.serve.engine import Request, ServeEngine
+
+    engine = ServeEngine(cfg, params, max_len=512, batch_size=4)
+    finite = []
+    to_host = engine._logits_to_host
+
+    def checked(logits):
+        arr = to_host(logits)
+        finite.append(arr.shape[-1] == cfg.padded_vocab and bool(np.isfinite(arr).all()))
+        return arr
+
+    engine._logits_to_host = checked
+    engine.generate([Request(99, [1, 2, 3, 4, 5, 6, 7, 8], max_new_tokens=2)])  # warm-up
+
+    rng = np.random.default_rng(0)
+    lengths = [200, 5, 83, 161, 44, 122]  # spread over 5-200; 6 requests on 4 rows refill
+    reqs = [
+        Request(i, rng.integers(0, cfg.vocab_size, n).tolist(), max_new_tokens=16)
+        for i, n in enumerate(lengths)
+    ]
+    ops.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    engine.generate(reqs)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(ops.LAUNCHES)
+
+    n_prefill = len(engine.call_seconds["prefill"])
+    n_decode = len(engine.call_seconds["decode"])
+    n_fwd = n_prefill + n_decode
+    assert all(r.done and len(r.generated) == 16 for r in reqs), "a request did not finish"
+    assert all(finite), "non-finite logits"
+    # per forward pass: ln1 and ln2 in every layer plus the final norm
+    # (61 for deepseek-7b), and one attention per layer (30)
+    assert launches["rmsnorm"] == (2 * cfg.n_layers + 1) * n_fwd, (launches, n_fwd)
+    assert launches["flash_attention"] == cfg.n_layers * n_fwd, (launches, n_fwd)
+    pre = sorted(engine.call_seconds["prefill"])
+    dec = sorted(engine.call_seconds["decode"])
+    n_tok = sum(len(r.generated) for r in reqs)
+    log(f"serve: {len(reqs)} requests, prompts {lengths}, {n_tok} tokens in {wall:.4f} s "
+        f"= {n_tok / wall:.2f} tokens/s; {n_prefill} prefills + {n_decode} decode steps")
+    log(f"serve: prefill ms median {pre[len(pre) // 2] * 1e3:.3f} "
+        f"(min {pre[0] * 1e3:.3f}, max {pre[-1] * 1e3:.3f}); decode-step ms median "
+        f"{dec[len(dec) // 2] * 1e3:.3f} (min {dec[0] * 1e3:.3f}, max {dec[-1] * 1e3:.3f}); "
+        f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    log(f"serve: launches {launches} over {n_fwd} forward passes "
+        f"= {launches['rmsnorm'] / n_fwd:g} rmsnorm + {launches['flash_attention'] / n_fwd:g} "
+        f"flash per pass")
+    return launches
+
+
+def rel_err(a, b) -> float:
+    return float((a.float() - b.float()).norm() / b.float().norm())
+
+
+def prefill_decode_consistency(torch, np, cfg, params):
+    """prefill(p[:n+1]) against prefill(p[:n]) + decode_step(p[n], pos=n),
+    two rows at different depths decoded in one batch with per-row pos."""
+    from repro_torch.models import Model
+    from repro_torch.serve.engine import ServeEngine
+
+    # bf16 keeps 8 significant bits; the two paths round at different places
+    # (other matmul shapes, so other cuBLAS kernels and sum orders, over 30
+    # layers), so logits may drift by a few tenths of a percent per layer.
+    # A wrong slot, position or mask moves the last token's attention over a
+    # different context, which the control below measures.
+    tol = 5e-2
+    model = Model(cfg)
+    dev = model.device
+    rng = np.random.default_rng(1)
+    ns = [37, 120]
+    prompts = [rng.integers(0, cfg.vocab_size, n + 1).tolist() for n in ns]
+    cache = model.init_cache(2, 512)
+    full = []
+    for row, (p, n) in enumerate(zip(prompts, ns)):
+        tok = torch.tensor([p], dtype=torch.int32, device=dev)
+        full.append(model.prefill(params, {"tokens": tok})[0][0, 0])
+        _, rc = model.prefill(params, {"tokens": tok[:, :n]}, model.init_cache(1, 512))
+        ServeEngine.insert_row(cache, rc, row)
+    last = torch.tensor([[p[n]] for p, n in zip(prompts, ns)], dtype=torch.int32, device=dev)
+    dec, _ = model.decode_step(params, cache, last, torch.tensor(ns, dtype=torch.int32, device=dev))
+    errs = [rel_err(dec[i, 0], full[i]) for i in range(2)]
+    control = rel_err(dec[1, 0], full[0])  # another row's context: what a fault looks like
+    log(f"consistency: rel L2 err of decode vs prefill logits {errs} (tol {tol}); "
+        f"control (row 1's decode vs row 0's prefill) {control:.4f}")
+    assert all(torch.isfinite(d).all() for d in full) and bool(torch.isfinite(dec).all())
+    assert max(errs) <= tol, errs
+
+
+def small_model_against_cpu(torch, np):
+    """A small model (head_dim 64, fp32) on the card through the kernels
+    against the same weights on the CPU through the plain versions."""
+    from repro_torch.configs import reduced_config
+    from repro_torch.models import Model
+
+    tol = 1e-4
+    cfg = reduced_config("deepseek-7b", head_dim=64)
+    cpu, gpu = Model(cfg, device="cpu"), Model(cfg)
+    p_cpu = cpu.init(torch.Generator().manual_seed(3))
+    p_gpu = _tree_to(p_cpu, gpu.device)
+    toks = torch.from_numpy(
+        np.random.default_rng(4).integers(0, cfg.vocab_size, (3, 20)).astype(np.int32)
+    )
+
+    def run(model, params):
+        dev = model.device
+        cache = model.init_cache(3, 32)
+        outs = [model.prefill(params, {"tokens": toks[:, :12].to(dev)}, cache)[0].cpu()]
+        for i in range(4):  # rows at different depths: per-row positions
+            pos = torch.tensor([12 + i, 13 + i, 14 + i], dtype=torch.int32, device=dev)
+            tok = toks[:, 12 + i : 13 + i].to(dev)
+            outs.append(model.decode_step(params, cache, tok, pos)[0].cpu())
+        return outs
+
+    worst = max(
+        (a - b).abs().max().item() for a, b in zip(run(gpu, p_gpu), run(cpu, p_cpu))
+    )
+    log(f"small model: cuda kernels vs cpu plain path, prefill + 4 decode steps, "
+        f"max abs logit err {worst:.3e} (tol {tol})")
+    assert worst <= tol, worst
+
+
+def _tree_to(tree, device):
+    return {k: _tree_to(v, device) if isinstance(v, dict) else v.to(device) for k, v in tree.items()}
+
+
+def profile_decode(torch, cfg, params, batch: int = 4, steps: int = 5):
+    """Device busy share and time by kernel over decode steps at the
+    serving batch, from torch.profiler."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.models import Model
+
+    model = Model(cfg)
+    dev = model.device
+    cache = model.init_cache(batch, 512)
+    tok = torch.zeros((batch, 1), dtype=torch.int32, device=dev)
+    pos = [torch.full((batch,), 100 + i, dtype=torch.int32, device=dev) for i in range(steps + 1)]
+    model.decode_step(params, cache, tok, pos[0])
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for i in range(steps):
+            model.decode_step(params, cache, tok, pos[i + 1])
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    kernels = [e for e in prof.key_averages() if e.device_type.name == "CUDA"]
+    busy_us = sum(e.self_device_time_total for e in kernels)
+    if not busy_us:
+        log("profile: the profiler recorded no device time; busy share not measured")
+        return
+    n_launch = sum(e.count for e in kernels)
+    log(f"profile: decode at batch {batch}, {steps} steps: wall {wall_us / steps / 1e3:.3f} ms/step "
+        f"(profiled), device busy {busy_us / steps / 1e3:.3f} ms/step = "
+        f"{busy_us / wall_us:.4f} of wall, {n_launch / steps:.0f} kernels/step")
+    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]:
+        log(f"profile:   {e.self_device_time_total / steps / 1e3:8.4f} ms/step "
+            f"{e.count // steps:5d}/step  {e.key[:90]}")
+
+
+def calibrate_phase(cfg, params, card):
+    from repro_torch.serve.engine import ServeEngine
+    from repro_torch.serve.latency import calibrate
+
+    engine = ServeEngine(cfg, params, max_len=64, batch_size=128)
+    t0 = time.perf_counter()
+    curve = calibrate(engine, batch_sizes=(1, 8, 32, 128), steps=24)
+    log(f"calibrate: {card}; deepseek-7b full width bf16, max_len 64, batch sizes "
+        f"(1, 8, 32, 128), 24 steps each: base {curve.base!r} s, per_req {curve.per_req!r} s "
+        f"({time.perf_counter() - t0:.1f} s); step_time(b) ms: "
+        + ", ".join(f"{b}: {curve.step_time(b) * 1e3:.3f}" for b in (1, 8, 32, 128)))
+
+
+# --------------------------------------------------------------------------
+
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; this script runs on the GPU only", file=sys.stderr)
+        return 1
+    sys.path.insert(0, str(ROOT / "src"))
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import _build, ops, ref
+    from repro_torch.models import Model
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t_start = time.perf_counter()
+
+    # 1. device
+    dev = torch.device("cuda", 0)
+    cap = torch.cuda.get_device_capability(dev)
+    if cap != (9, 0):
+        print(f"chip_smoke: needs a Hopper card (capability 9.0), got {cap}", file=sys.stderr)
+        return 1
+    card = subprocess.run(
+        ["nvidia-smi", "-i", "0", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        check=True, capture_output=True, text=True,
+    ).stdout.strip()
+    log(f"card: {card}")
+    log(f"torch {torch.__version__} cuda {torch.version.cuda}, python {sys.version.split()[0]}")
+
+    # 2. build
+    t0 = time.perf_counter()
+    _build.load()
+    log(f"build: {time.perf_counter() - t0:.1f} s ({_build.library_path().name})")
+
+    # 3. kernels against their plain versions
+    timer = Timer(torch, dev)
+    results = rmsnorm_cases(torch, ops, ref, timer, dev) + flash_cases(torch, ops, ref, timer, dev)
+    for r in results:
+        log("case: " + json.dumps(r))
+    bad = [r["case"] for r in results if not r["ok"]]
+    assert not bad, f"kernels disagree with their plain versions: {bad}"
+
+    # 4. serve at full width (the main path)
+    cfg = get_config("deepseek-7b")
+    t0 = time.perf_counter()
+    params = Model(cfg).init(torch.Generator(device=dev).manual_seed(0))
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in _leaves(params))
+    log(f"init: deepseek-7b {cfg.n_layers} layers, {n_params} params in bf16, "
+        f"{time.perf_counter() - t0:.1f} s")
+    launches = serve(torch, np, cfg, params, ops)
+
+    # 5. checks
+    prefill_decode_consistency(torch, np, cfg, params)
+    small_model_against_cpu(torch, np)
+
+    # 6. where a decode step's time goes, and the calibrated curve
+    profile_decode(torch, cfg, params)
+    calibrate_phase(cfg, params, card)
+
+    # one line per kernel, at its main-path decode shape
+    chosen = {"rmsnorm": "bfloat16 rows=8 D=4096", "flash_attention": "decode bfloat16"}
+    line = []
+    for name, source, replaces in (
+        ("rmsnorm", "src/repro_torch/csrc/rmsnorm.cu", "src/repro/kernels/rmsnorm.py:24"),
+        ("flash_attention", "src/repro_torch/csrc/flash_attention.cu",
+         "src/repro/kernels/flash_attention.py:87"),
+    ):
+        mine = [r for r in results if r["kernel"] == name]
+        rep = next(r for r in mine if r["case"].startswith(chosen[name]))
+        line.append(dict(
+            name=name, route="cuda", source=source, replaces=replaces,
+            launches=launches[name], max_abs_err=max(r["max_abs_err"] for r in mine),
+            ms=rep["ms"], plain_ms=rep["plain_ms"], bound_ms=rep["bound_ms"],
+            bound_by=rep["bound_by"], library_ms=rep["library_ms"], case=rep["case"],
+        ))
+    log(f"total: {time.perf_counter() - t_start:.1f} s")
+    print(json.dumps({"kernels": line}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+def _leaves(tree):
+    for v in tree.values():
+        if isinstance(v, dict):
+            yield from _leaves(v)
+        else:
+            yield v
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,275 @@
+"""Dense-decoder layers of the port: RMSNorm, RoPE, GQA attention with a KV
+cache, gated and plain MLP, embeddings.  Plain functions on dicts of
+tensors, in the JAX package's layouts (``repro/models/layers.py``):
+
+  x            [B, S, D]
+  q            [B, S, H, K]      (K = head_dim)
+  k, v         [B, T, G, K]      (G = kv heads)
+  wq [D,H,K]   wk, wv [D,G,K]    wo [H,K,D]
+  w_up, w_gate [D,F]   w_down [F,D]   tokens [V,D]   unembed [D,V]
+
+Weights live in ``cfg.dtype``; norm scales, softmax and norm statistics
+are fp32.  RMSNorm and attention go through ``kernels.ops``: on CUDA
+tensors they launch the hand-written kernels, on CPU tensors they run the
+plain versions.
+"""
+from __future__ import annotations
+
+import math
+from typing import Any, Dict, Optional, Tuple, Union
+
+import torch
+import torch.nn.functional as F
+
+from ..configs.base import ArchConfig
+from ..kernels import ops
+
+Params = Dict[str, Any]
+CacheIndex = Union[int, torch.Tensor, None]
+
+_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def dtype_of(cfg: ArchConfig) -> torch.dtype:
+    return _DTYPES[cfg.dtype]
+
+
+def normal(
+    gen: torch.Generator, shape: Tuple[int, ...], std: float, dtype: torch.dtype
+) -> torch.Tensor:
+    """Seeded N(0, std^2) draw, taken in fp32 on the generator's device and
+    cast to ``dtype`` (the JAX init's order of operations)."""
+    w = torch.randn(shape, generator=gen, device=gen.device, dtype=torch.float32)
+    return w.mul_(std).to(dtype)
+
+
+def init_from_spec(gen: torch.Generator, spec: Any, dtype: torch.dtype) -> Any:
+    """Params for a (nested) spec of ``(shape, std)`` leaves: a seeded
+    normal draw in ``dtype``, or fp32 ones where the std is None (norm
+    scales).  Leaves are drawn in the spec's order."""
+    if isinstance(spec, dict):
+        return {k: init_from_spec(gen, v, dtype) for k, v in spec.items()}
+    shape, std = spec
+    if std is None:
+        return torch.ones(shape, dtype=torch.float32, device=gen.device)
+    return normal(gen, shape, std, dtype)
+
+
+# --------------------------------------------------------------------------
+# norms / rope
+# --------------------------------------------------------------------------
+
+
+def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    return ops.rmsnorm(x.contiguous(), scale, eps)
+
+
+def rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor:
+    """Rotary embedding. x: [B,S,H,K]; positions: [S] or [B,S].  Angles in
+    fp32; the result is cast back to x's dtype."""
+    K = x.shape[-1]
+    half = K // 2
+    freqs = torch.exp(
+        -math.log(theta)
+        * torch.arange(0, half, dtype=torch.float32, device=x.device)
+        / half
+    )
+    pos = positions.to(torch.float32)
+    if positions.ndim == 1:
+        angles = pos[None, :, None] * freqs[None, None, :]
+    else:
+        angles = pos[:, :, None] * freqs[None, None, :]
+    angles = angles[:, :, None, :]  # [1 or B, S, 1, half]
+    cos, sin = torch.cos(angles), torch.sin(angles)
+    x1, x2 = x[..., :half], x[..., half : 2 * half]
+    rx1 = x1 * cos - x2 * sin
+    rx2 = x2 * cos + x1 * sin
+    out = torch.cat([rx1, rx2, x[..., 2 * half :].to(rx1.dtype)], dim=-1)
+    return out.to(x.dtype)
+
+
+# --------------------------------------------------------------------------
+# attention
+# --------------------------------------------------------------------------
+
+
+def attention_spec(cfg: ArchConfig) -> Dict[str, Tuple[Tuple[int, ...], Optional[float]]]:
+    """Shape and init std of each attention leaf (None: fp32 ones)."""
+    D, H, G, K = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    spec = {
+        "wq": ((D, H, K), D**-0.5),
+        "wk": ((D, G, K), D**-0.5),
+        "wv": ((D, G, K), D**-0.5),
+        "wo": ((H, K, D), (H * K) ** -0.5),
+    }
+    if cfg.qk_norm:
+        spec["q_norm"] = ((K,), None)
+        spec["k_norm"] = ((K,), None)
+    return spec
+
+
+def init_attention(gen: torch.Generator, cfg: ArchConfig) -> Params:
+    return init_from_spec(gen, attention_spec(cfg), dtype_of(cfg))
+
+
+def _proj(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """x [B,S,D] @ w [D,A,K] -> [B,S,A,K], contiguous."""
+    B, S, D = x.shape
+    return (x.reshape(B * S, D) @ w.reshape(D, -1)).view(B, S, *w.shape[1:])
+
+
+def _write_cache(
+    cache: Params,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    q_pos: torch.Tensor,
+    cache_index: CacheIndex,
+    window: Optional[int],
+) -> None:
+    """Write the new k/v and their positions into ``cache`` in place (the
+    JAX version returns a new pytree instead)."""
+    ck, cv, cpos = cache["k"], cache["v"], cache["pos"]
+    W = ck.shape[1]  # buffer length (ring if SWA)
+    B, S = k.shape[:2]
+    if torch.is_tensor(cache_index) and cache_index.ndim == 1:
+        # Per-row decode (batched serving: rows at different depths in one
+        # batch).  Each row writes its single new k/v at its own slot; the
+        # shared ``pos`` leaf stays consistent because with no sliding
+        # window slot == absolute position for every row, and rows writing
+        # the same slot write the same position value.
+        if window is not None:
+            raise ValueError("per-row cache positions require sliding_window=None")
+        slots = cache_index.long()
+        bidx = torch.arange(B, device=k.device)
+        ck[bidx, slots] = k[:, 0].to(ck.dtype)
+        cv[bidx, slots] = v[:, 0].to(cv.dtype)
+        cpos[0, slots] = q_pos[:, 0].to(torch.int32)
+    elif S >= W:
+        # Prefill overflowing a ring buffer: keep the last W entries.
+        # Ring-slot invariant (slot == pos % W) needs S % W == 0.
+        if S % W:
+            raise ValueError("SWA prefill length must be a multiple of W")
+        ck.copy_(k[:, -W:])
+        cv.copy_(v[:, -W:])
+        cpos.copy_(q_pos[-W:].to(torch.int32)[None, :])
+    else:
+        slot = cache_index % W if window is not None else cache_index
+        # dynamic_update_slice semantics: the start clamps so the update
+        # fits.  A tensor slot stays on the device (no host sync).
+        if torch.is_tensor(slot):
+            idx = torch.clamp(slot, 0, W - S) + torch.arange(S, device=k.device)
+        else:
+            start = min(max(slot, 0), W - S)
+            idx = torch.arange(start, start + S, device=k.device)
+        ck.index_copy_(1, idx, k.to(ck.dtype))
+        cv.index_copy_(1, idx, v.to(cv.dtype))
+        cpos.index_copy_(1, idx, q_pos.to(torch.int32)[None, :])
+
+
+def apply_attention(
+    p: Params,
+    cfg: ArchConfig,
+    x: torch.Tensor,  # [B,S,D]
+    q_pos: torch.Tensor,  # [S], or [B,1] per-row decode positions
+    cache: Optional[Params] = None,
+    cache_index: CacheIndex = None,
+    self_attend: bool = True,
+) -> Tuple[torch.Tensor, Optional[Params]]:
+    """Attention sublayer.
+
+    ``cache`` given + ``self_attend``  : prefill — attend over the local
+        k/v and write them into the cache.
+    ``cache`` given + not self_attend  : decode — write the new k/v at
+        ``cache_index`` (a scalar, or one slot per row) and attend over the
+        buffer.
+    no cache                           : plain self-attention.
+
+    The cache is updated in place and returned (the same dict).
+    """
+    q = _proj(x, p["wq"])
+    k = _proj(x, p["wk"])
+    v = _proj(x, p["wv"])
+    if cfg.qk_norm:
+        q = rms_norm(q, p["q_norm"])
+        k = rms_norm(k, p["k_norm"])
+    q = rope(q, q_pos, cfg.rope_theta)
+    k = rope(k, q_pos, cfg.rope_theta)
+
+    window = cfg.sliding_window
+    if cache is not None:
+        _write_cache(cache, k, v, q_pos, cache_index, window)
+    if cache is None or self_attend:
+        out = ops.flash_attention(q, k, v, q_pos, q_pos, cfg.causal, window)
+    else:
+        out = ops.flash_attention(
+            q, cache["k"], cache["v"], q_pos, cache["pos"][0], cfg.causal, window
+        )
+    B, S, H, K = out.shape
+    out = out.reshape(B * S, H * K) @ p["wo"].reshape(H * K, -1)
+    return out.view(B, S, -1), cache
+
+
+def init_attn_cache(
+    cfg: ArchConfig, batch: int, max_len: int, dtype: torch.dtype, device
+) -> Params:
+    W = max_len if cfg.sliding_window is None else min(max_len, cfg.sliding_window)
+    G, K = cfg.n_kv_heads, cfg.head_dim
+    return {
+        "k": torch.zeros((batch, W, G, K), dtype=dtype, device=device),
+        "v": torch.zeros((batch, W, G, K), dtype=dtype, device=device),
+        # -1 marks unwritten slots; [1, W] as in the JAX cache.
+        "pos": torch.full((1, W), -1, dtype=torch.int32, device=device),
+    }
+
+
+# --------------------------------------------------------------------------
+# MLP
+# --------------------------------------------------------------------------
+
+
+def mlp_spec(cfg: ArchConfig) -> Dict[str, Tuple[Tuple[int, ...], float]]:
+    D, F_ = cfg.d_model, cfg.d_ff
+    spec = {"w_up": ((D, F_), D**-0.5), "w_down": ((F_, D), F_**-0.5)}
+    if cfg.mlp_gated:
+        spec["w_gate"] = ((D, F_), D**-0.5)
+    return spec
+
+
+def init_mlp(gen: torch.Generator, cfg: ArchConfig) -> Params:
+    return init_from_spec(gen, mlp_spec(cfg), dtype_of(cfg))
+
+
+def apply_mlp(p: Params, cfg: ArchConfig, x: torch.Tensor) -> torch.Tensor:
+    up = x @ p["w_up"]
+    if cfg.mlp_gated:
+        h = F.silu(x @ p["w_gate"]) * up
+    else:
+        h = F.gelu(up, approximate="tanh")  # jax.nn.gelu's default
+    return h @ p["w_down"]
+
+
+# --------------------------------------------------------------------------
+# embeddings
+# --------------------------------------------------------------------------
+
+
+def embedding_spec(cfg: ArchConfig) -> Dict[str, Tuple[Tuple[int, ...], float]]:
+    V, D = cfg.padded_vocab, cfg.d_model
+    spec = {"tokens": ((V, D), 0.02)}
+    if not cfg.tie_embeddings:
+        spec["unembed"] = ((D, V), D**-0.5)
+    return spec
+
+
+def init_embedding(gen: torch.Generator, cfg: ArchConfig) -> Params:
+    return init_from_spec(gen, embedding_spec(cfg), dtype_of(cfg))
+
+
+def embed_tokens(p: Params, tokens: torch.Tensor) -> torch.Tensor:
+    return p["tokens"][tokens]
+
+
+def unembed(p: Params, cfg: ArchConfig, x: torch.Tensor) -> torch.Tensor:
+    if cfg.tie_embeddings:
+        return x @ p["tokens"].T
+    return x @ p["unembed"]

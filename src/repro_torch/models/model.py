@@ -1,0 +1,189 @@
+"""Model facade of the port: init / prefill / decode for the dense family.
+
+The JAX package scans over stacked blocks (``repro/models/model.py``); the
+port keeps the stacked ``[n_blocks, ...]`` parameter and cache leaves and
+loops over the block index.  Mamba, MoE and the frontend families raise
+``NotImplementedError`` naming the ROADMAP.md item that will port them;
+``Model.loss`` waits for the training slice (queue A item 5).
+"""
+from __future__ import annotations
+
+from typing import Any, Dict, Optional, Tuple, Union
+
+import torch
+
+from ..configs.base import ArchConfig
+from . import layers as L
+
+Params = Dict[str, Any]
+Spec = Dict[str, Any]
+
+_NOT_PORTED = {
+    "ssm": "ROADMAP.md queue A item 6 (SSM)",
+    "moe": "ROADMAP.md queue A item 7 (MoE)",
+    "hybrid": "ROADMAP.md queue A items 6-8 (SSM, MoE, hybrid)",
+    "vlm": "ROADMAP.md queue A item 8 (remaining families)",
+    "audio": "ROADMAP.md queue A item 8 (remaining families)",
+}
+
+
+def resolve_device(device: Union[str, torch.device]) -> torch.device:
+    """The device an entry point runs on.  ``"cuda"`` needs a CUDA device
+    and raises without one: nothing carries on on the CPU unless the
+    caller asked for it."""
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "no CUDA device available; pass device='cpu' to run the "
+                "plain PyTorch path on the CPU"
+            )
+        if dev.index is None:
+            dev = torch.device("cuda", torch.cuda.current_device())
+    elif dev.type != "cpu":
+        raise ValueError(f"device must be cuda or cpu, got {dev}")
+    return dev
+
+
+def _index(tree: Params, i: int) -> Params:
+    """Block ``i`` of a stacked tree: views, so in-place cache writes land
+    in the stacked tensors."""
+    return {k: _index(v, i) if isinstance(v, dict) else v[i] for k, v in tree.items()}
+
+
+def _apply_sub(
+    sub: Params,
+    cfg: ArchConfig,
+    h: torch.Tensor,
+    q_pos: torch.Tensor,
+    cache: Optional[Params],
+    cache_index: L.CacheIndex,
+    self_attend: bool,
+) -> torch.Tensor:
+    y = L.rms_norm(h, sub["ln1"])
+    y, _ = L.apply_attention(
+        sub["attn"], cfg, y, q_pos,
+        cache=cache, cache_index=cache_index, self_attend=self_attend,
+    )
+    h = h + y
+    y = L.rms_norm(h, sub["ln2"])
+    return h + L.apply_mlp(sub["mlp"], cfg, y)
+
+
+def param_spec(cfg: ArchConfig) -> Spec:
+    """Nested dict of ``(shape, init std)`` per parameter leaf, in the JAX
+    package's tree layout; std None marks fp32 norm scales (ones).  Block
+    leaves are stacked, with ``n_blocks`` in front."""
+    nb = cfg.n_scan_blocks
+
+    def stacked(spec: Spec) -> Spec:
+        return {k: ((nb,) + shape, std) for k, (shape, std) in spec.items()}
+
+    norm = ((nb, cfg.d_model), None)
+    return {
+        "embed": L.embedding_spec(cfg),
+        "blocks": {
+            "sub0": {
+                "ln1": norm,
+                "attn": stacked(L.attention_spec(cfg)),
+                "ln2": norm,
+                "mlp": stacked(L.mlp_spec(cfg)),
+            }
+        },
+        "final_norm": ((cfg.d_model,), None),
+    }
+
+
+class Model:
+    def __init__(self, cfg: ArchConfig, device: Union[str, torch.device] = "cuda"):
+        if cfg.family in _NOT_PORTED:
+            raise NotImplementedError(
+                f"{cfg.name}: the {cfg.family} family is not ported yet; "
+                f"see {_NOT_PORTED[cfg.family]}"
+            )
+        self.cfg = cfg
+        self.device = resolve_device(device)
+        self.n_blocks = cfg.n_scan_blocks
+
+    def init(self, generator: torch.Generator) -> Params:
+        """Random params drawn from ``generator``, which must live on the
+        model's device (weights are made where they will be used)."""
+        if generator.device.type != self.device.type:
+            raise ValueError(
+                f"generator lives on {generator.device}, model on {self.device}"
+            )
+        return L.init_from_spec(generator, param_spec(self.cfg), L.dtype_of(self.cfg))
+
+    # ---- backbone -------------------------------------------------------
+
+    def _backbone(
+        self,
+        params: Params,
+        h: torch.Tensor,
+        q_pos: torch.Tensor,
+        cache: Optional[Params] = None,
+        cache_index: L.CacheIndex = None,
+        self_attend: bool = True,
+    ) -> torch.Tensor:
+        for i in range(self.n_blocks):
+            block = _index(params["blocks"], i)
+            block_cache = _index(cache, i) if cache is not None else None
+            h = _apply_sub(
+                block["sub0"], self.cfg, h, q_pos,
+                block_cache["sub0"] if block_cache else None,
+                cache_index, self_attend,
+            )
+        return h
+
+    # ---- public API -----------------------------------------------------
+
+    def init_cache(
+        self, batch: int, max_len: int, dtype: Optional[torch.dtype] = None
+    ) -> Params:
+        """Zeroed KV cache ``{"sub0": {"k","v": [n_blocks,B,W,G,K],
+        "pos": [n_blocks,1,W]}}`` on the model's device; ``pos`` -1 marks
+        unwritten slots."""
+        one = L.init_attn_cache(
+            self.cfg, batch, max_len, dtype or L.dtype_of(self.cfg), self.device
+        )
+        return {
+            "sub0": {
+                k: v[None].repeat((self.n_blocks,) + (1,) * v.ndim)
+                for k, v in one.items()
+            }
+        }
+
+    def prefill(
+        self,
+        params: Params,
+        batch: Dict[str, torch.Tensor],
+        cache: Optional[Params] = None,
+    ) -> Tuple[torch.Tensor, Optional[Params]]:
+        """Process the prompt ``batch["tokens"] [B,S]``; returns (last-token
+        logits [B,1,V], cache).  The cache is filled in place."""
+        tokens = batch["tokens"]
+        h = L.embed_tokens(params["embed"], tokens)
+        S = tokens.shape[1]
+        q_pos = torch.arange(S, dtype=torch.int32, device=h.device)
+        h = self._backbone(params, h, q_pos, cache=cache, cache_index=0, self_attend=True)
+        h = L.rms_norm(h, params["final_norm"])
+        return L.unembed(params["embed"], self.cfg, h[:, -1:, :]), cache
+
+    def decode_step(
+        self,
+        params: Params,
+        cache: Params,
+        tokens: torch.Tensor,  # [B,1]
+        pos: Union[int, torch.Tensor],  # scalar (shared) or [B] (per-row)
+    ) -> Tuple[torch.Tensor, Params]:
+        """One decode step.  ``pos`` is the absolute position of this
+        token: a scalar when the whole batch decodes in lockstep, or a
+        per-row ``[B]`` vector when rows sit at different depths (the
+        serving engine's continuous-refill loop).  The cache is updated in
+        place and returned."""
+        h = L.embed_tokens(params["embed"], tokens)
+        pos = torch.as_tensor(pos, dtype=torch.int32, device=h.device)
+        q_pos = pos[None] if pos.ndim == 0 else pos[:, None]
+        h = self._backbone(params, h, q_pos, cache=cache, cache_index=pos, self_attend=False)
+        h = L.rms_norm(h, params["final_norm"])
+        return L.unembed(params["embed"], self.cfg, h), cache

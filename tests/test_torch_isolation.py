@@ -1,0 +1,54 @@
+"""The port imports neither JAX nor the JAX package, and neither does
+chip_smoke.py."""
+import ast
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+
+pytest.importorskip("torch")
+
+ROOT = Path(__file__).resolve().parents[1]
+
+_PROBE = """
+import importlib, pkgutil, sys
+import repro_torch
+names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__, "repro_torch.")]
+for name in names:
+    importlib.import_module(name)
+bad = sorted(m for m in sys.modules
+             if m == "jax" or m.startswith("jax.") or m == "repro" or m.startswith("repro."))
+print(len(names), bad)
+assert not bad, bad
+"""
+
+
+def test_port_modules_load_no_jax_and_no_repro():
+    out = subprocess.run(
+        [sys.executable, "-c", _PROBE],
+        cwd=ROOT, env={**os.environ, "PYTHONPATH": str(ROOT / "src")},
+        capture_output=True, text=True, timeout=120,
+    )
+    assert out.returncode == 0, out.stderr
+    n_modules = int(out.stdout.split()[0])
+    assert n_modules >= 14  # every module of the slice was imported
+
+
+def _imported_roots(path: Path) -> set:
+    roots = set()
+    for node in ast.walk(ast.parse(path.read_text())):
+        if isinstance(node, ast.Import):
+            roots |= {a.name.split(".")[0] for a in node.names}
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            roots.add(node.module.split(".")[0])
+    return roots
+
+
+@pytest.mark.parametrize("path", ["chip_smoke.py", *sorted(
+    str(p.relative_to(ROOT)) for p in (ROOT / "src" / "repro_torch").rglob("*.py")
+)])
+def test_no_jax_or_repro_import_statement(path):
+    roots = _imported_roots(ROOT / path)
+    assert not roots & {"jax", "jaxlib", "repro"}, roots
