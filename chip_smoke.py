@@ -7,17 +7,25 @@ Phases (any failure exits non-zero):
   1. device   — a CUDA device of capability (9, 0); prints the card's name
                 and power limit as nvidia-smi reports them.
   2. build    — compiles the port's CUDA kernels from src/repro_torch/csrc.
-  3. kernels  — each kernel against its plain PyTorch version on the card,
-                at the main path's shapes, with times (kernel, plain, one
-                PyTorch library call as a yardstick) and the bound.
-  4. serve    — the main path: full-width, 30-layer deepseek-7b in bf16 from
+  3. kernels  — each kernel (RMSNorm, flash attention, SSD scan) against its
+                plain PyTorch version on the card, at the main paths'
+                shapes, with times (kernel, plain, one PyTorch library call
+                as a yardstick where one exists) and the bound.
+  4. serve    — main path 1: full-width, 30-layer deepseek-7b in bf16 from
                 a seeded generator; ServeEngine(max_len=512, batch_size=4)
-                serves 6 requests of 16 new tokens; the kernel launch counts
-                of this run must be 61 RMSNorm and 30 attention per forward.
+                serves 6 requests of 16 new tokens; every forward pass must
+                launch 61 RMSNorm and 30 attention kernels.
   5. checks   — prefill/decode consistency at full width, and a small model
                 on the card against the same model on the CPU (plain path).
   6. calibrate — a profiled decode step (device busy share, time by kernel)
                 and the decode-step latency curve at batch 1, 8, 32, 128.
+  7. ssm      — main path 2: full-width, 48-layer mamba2-370m in bf16;
+                ServeEngine(max_len=512, batch_size=4) serves 6 requests
+                (prompts of 1 to 300 tokens) of 16 new tokens; every pass
+                launches 97 RMSNorm kernels, every prefill 48 SSD scans and
+                no decode step any.  Then its prefill/decode consistency, a
+                small SSM model on the card against the CPU, and a profiled
+                decode step.
 Then one line {"kernels": [...]} and, last, {"ok": true, "device": {...}}.
 
 Imports nothing of JAX or of the JAX package.
@@ -35,6 +43,7 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}  # dense bf16 tensor / fp32 non-tensor
 L2_FLUSH_BYTES = 64 << 20  # more than the 50 MB L2: every timed launch starts cold
 SPIN_CYCLES = 40_000_000  # about 20 ms of device time at the H100's clock
+SPIN_HZ = 2.0e9  # above the H100's top SM clock, so a spin lasts at least cycles / SPIN_HZ
 
 
 def log(*args) -> None:
@@ -58,12 +67,19 @@ class Timer:
         """Median device time of one call, from CUDA events, with the L2
         cache flushed before each call.  A spin kernel keeps the device busy
         while the host queues every call, so host overhead between the
-        events does not count."""
+        events does not count; it lasts at least twice the host time of
+        one synchronised call per timed call, enough for a plain version
+        whose host time exceeds its device time."""
         torch = self.torch
         for _ in range(warmup):
             fn()
         torch.cuda.synchronize()
-        torch.cuda._sleep(SPIN_CYCLES)
+        t0 = time.perf_counter()
+        self.flush.zero_()
+        fn()
+        torch.cuda.synchronize()
+        host_s = time.perf_counter() - t0
+        torch.cuda._sleep(max(SPIN_CYCLES, int(2 * iters * host_s * SPIN_HZ)))
         pairs = []
         for _ in range(iters):
             self.flush.zero_()
@@ -189,12 +205,88 @@ def flash_cases(torch, ops, ref, timer, dev):
     return out
 
 
+def ssd_flops(B, S, H, P, N, Q) -> int:
+    """Operations of the chunked scan: per (b, h, chunk of q <= Q
+    positions) 2q^2 N (C B^T) + 2q^2 P (W x) + 4qNP (the carried state's
+    output and the state update); the tail chunk counts its q = S % Q."""
+    qs = [Q] * (S // Q) + ([S % Q] if S % Q else [])
+    return B * H * sum(2 * q * q * N + 2 * q * q * P + 4 * q * N * P for q in qs)
+
+
+def ssd_cases(torch, ops, ref, timer, dev):
+    cases = [
+        # name, B, S, H, P, N, chunk, dtype of x/B/C, dtype of y
+        ("prefill", 1, 512, 32, 64, 128, 128, "bfloat16", "float32"),  # the model's call
+        ("prefill", 1, 512, 32, 64, 128, 128, "bfloat16", "bfloat16"),
+        ("tail", 1, 200, 32, 64, 128, 128, "bfloat16", "float32"),
+        ("batch", 2, 512, 32, 64, 128, 128, "bfloat16", "float32"),
+        ("f32", 1, 512, 32, 64, 128, 128, "float32", "float32"),
+        ("continuation", 1, 512, 32, 64, 128, 128, "bfloat16", "float32"),
+        # tests/test_kernels_ssd.py's sweep, then the reduced config's sizes
+        ("sweep", 1, 128, 2, 64, 128, 128, "float32", "float32"),
+        ("sweep", 2, 256, 4, 64, 128, 128, "float32", "float32"),
+        ("sweep", 1, 256, 2, 32, 64, 64, "float32", "float32"),
+        ("sweep", 2, 96, 2, 64, 128, 32, "float32", "float32"),
+        ("sweep", 1, 200, 3, 16, 32, 64, "float32", "float32"),
+        ("reduced", 1, 12, 8, 16, 16, 16, "float32", "float32"),
+    ]
+    gen = torch.Generator(device=dev).manual_seed(5)
+    out = []
+    for name, B, S, H, P, N, Q, dtype, ydtype in cases:
+        tdt, ydt = getattr(torch, dtype), getattr(torch, ydtype)
+        x = torch.randn(B, S, H, P, generator=gen, device=dev).to(tdt)
+        dt = torch.rand(B, S, H, generator=gen, device=dev) * 0.099 + 0.001
+        A = -(torch.rand(H, generator=gen, device=dev) * 3.5 + 0.5)
+        Bm = torch.randn(B, S, N, generator=gen, device=dev).to(tdt)
+        Cm = torch.randn(B, S, N, generator=gen, device=dev).to(tdt)
+        y_want, s_want = ref.ssd_chunked_ref(x, dt, A, Bm, Cm, Q)
+        _, s_seq = ref.ssd_scan_ref(x, dt, A, Bm, Cm)
+        init, lo = None, 0
+        if name == "continuation":  # the first half's state into the second half
+            lo = S // 2
+            _, init = ops.ssd_scan(x[:, :lo], dt[:, :lo], A, Bm[:, :lo], Cm[:, :lo], Q)
+            x, dt, Bm, Cm = (t[:, lo:].contiguous() for t in (x, dt, Bm, Cm))
+            y_want = y_want[:, lo:]
+
+        def kernel():
+            return ops.ssd_scan(x, dt, A, Bm, Cm, Q, init_state=init, out_dtype=ydt)
+
+        y, s = kernel()
+        torch.cuda.synchronize()
+        tol = 2e-4 if ydtype == "float32" else 5e-2
+        err = max((y.float() - y_want).abs().max().item(), (s - s_want).abs().max().item())
+        ok = (bool(torch.isfinite(y).all()) and y.dtype == ydt
+              and torch.allclose(y.float(), y_want, atol=tol, rtol=tol)
+              and torch.allclose(s, s_want, atol=2e-4, rtol=2e-4)
+              and torch.allclose(s, s_seq, atol=2e-4, rtol=2e-4))
+        S_run = S - lo
+        esize, ysize = x.element_size(), y.element_size()
+        moved = (B * S_run * H * P * (esize + ysize) + 4 * B * S_run * H + 4 * H
+                 + 2 * B * S_run * N * esize + 4 * B * H * N * P * (2 if init is not None else 1))
+        b_ms, b_by = bound(moved, ssd_flops(B, S_run, H, P, N, Q), dtype)
+        out.append(dict(
+            kernel="ssd_scan",
+            case=f"{name} {dtype} B={B} S={S_run} H={H} P={P} N={N} chunk={Q} y={ydtype}"
+                 + (" init_state" if init is not None else ""),
+            max_abs_err=err, tol=tol, ok=ok,
+            ms=timer.ms(kernel),
+            plain_ms=timer.ms(lambda: ref.ssd_chunked_ref(x, dt, A, Bm, Cm, Q, init)),
+            library_ms=None,  # no single PyTorch call computes the SSD scan
+            bound_ms=b_ms, bound_by=b_by,
+        ))
+    return out
+
+
 # --------------------------------------------------------------------------
-# phases 4-6
+# phases 4-7
 # --------------------------------------------------------------------------
 
 
-def serve(torch, np, cfg, params, ops):
+def serve(torch, np, cfg, params, ops, lengths, per_pass):
+    """Serve len(lengths) requests of 16 new tokens through ServeEngine at
+    batch 4, with the launch counters set to 0 just before and read just
+    after.  ``per_pass[kernel] = (per prefill, per decode step)``: the
+    launches each forward pass must make."""
     from repro_torch.serve.engine import Request, ServeEngine
 
     engine = ServeEngine(cfg, params, max_len=512, batch_size=4)
@@ -209,8 +301,21 @@ def serve(torch, np, cfg, params, ops):
     engine._logits_to_host = checked
     engine.generate([Request(99, [1, 2, 3, 4, 5, 6, 7, 8], max_new_tokens=2)])  # warm-up
 
+    passes = []  # (kind, launches of that pass)
+    model = engine.model
+
+    def counted(kind, fn):
+        def call(*args, **kwargs):
+            before = dict(ops.LAUNCHES)
+            out = fn(*args, **kwargs)
+            passes.append((kind, {k: ops.LAUNCHES[k] - before[k] for k in before}))
+            return out
+        return call
+
+    model.prefill = counted("prefill", model.prefill)
+    model.decode_step = counted("decode", model.decode_step)
+
     rng = np.random.default_rng(0)
-    lengths = [200, 5, 83, 161, 44, 122]  # spread over 5-200; 6 requests on 4 rows refill
     reqs = [
         Request(i, rng.integers(0, cfg.vocab_size, n).tolist(), max_new_tokens=16)
         for i, n in enumerate(lengths)
@@ -225,25 +330,23 @@ def serve(torch, np, cfg, params, ops):
 
     n_prefill = len(engine.call_seconds["prefill"])
     n_decode = len(engine.call_seconds["decode"])
-    n_fwd = n_prefill + n_decode
     assert all(r.done and len(r.generated) == 16 for r in reqs), "a request did not finish"
     assert all(finite), "non-finite logits"
-    # per forward pass: ln1 and ln2 in every layer plus the final norm
-    # (61 for deepseek-7b), and one attention per layer (30)
-    assert launches["rmsnorm"] == (2 * cfg.n_layers + 1) * n_fwd, (launches, n_fwd)
-    assert launches["flash_attention"] == cfg.n_layers * n_fwd, (launches, n_fwd)
+    assert len(passes) == n_prefill + n_decode, (len(passes), n_prefill, n_decode)
+    for kind, counts in passes:
+        want = {k: v[0 if kind == "prefill" else 1] for k, v in per_pass.items()}
+        assert counts == want, (kind, counts, want)
     pre = sorted(engine.call_seconds["prefill"])
     dec = sorted(engine.call_seconds["decode"])
     n_tok = sum(len(r.generated) for r in reqs)
-    log(f"serve: {len(reqs)} requests, prompts {lengths}, {n_tok} tokens in {wall:.4f} s "
-        f"= {n_tok / wall:.2f} tokens/s; {n_prefill} prefills + {n_decode} decode steps")
-    log(f"serve: prefill ms median {pre[len(pre) // 2] * 1e3:.3f} "
+    log(f"serve {cfg.name}: {len(reqs)} requests, prompts {lengths}, {n_tok} tokens in "
+        f"{wall:.4f} s = {n_tok / wall:.2f} tokens/s; {n_prefill} prefills + {n_decode} decode steps")
+    log(f"serve {cfg.name}: prefill ms median {pre[len(pre) // 2] * 1e3:.3f} "
         f"(min {pre[0] * 1e3:.3f}, max {pre[-1] * 1e3:.3f}); decode-step ms median "
         f"{dec[len(dec) // 2] * 1e3:.3f} (min {dec[0] * 1e3:.3f}, max {dec[-1] * 1e3:.3f}); "
         f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-    log(f"serve: launches {launches} over {n_fwd} forward passes "
-        f"= {launches['rmsnorm'] / n_fwd:g} rmsnorm + {launches['flash_attention'] / n_fwd:g} "
-        f"flash per pass")
+    log(f"serve {cfg.name}: launches {launches} over {n_prefill} prefills + {n_decode} decode "
+        f"steps; per pass (prefill, decode) {per_pass}")
     return launches
 
 
@@ -318,8 +421,93 @@ def small_model_against_cpu(torch, np):
     assert worst <= tol, worst
 
 
+def ssm_prefill_decode_consistency(torch, np, cfg, params):
+    """prefill(p[:S]) against prefill(p[:S-4]) + 4 decode steps, two rows
+    of different lengths in one batch.  The decode steps run the plain
+    recurrence, so this holds the kernel's final state against it.  Run
+    in bf16 (tol 5e-2, as in prefill_decode_consistency) and again with the
+    same weights in fp32, where rounding drift over 48 layers stays far
+    below 1e-3: a gap there would be a fault, not drift."""
+    import dataclasses
+
+    from repro_torch.models import Model
+    from repro_torch.serve.engine import ServeEngine
+
+    rng = np.random.default_rng(6)
+    ns = [41, 204]  # prefills of 37 and 200 tokens: a tail chunk each
+    toks = [rng.integers(0, cfg.vocab_size, n).tolist() for n in ns]
+    for dtype, tol in (("bfloat16", 5e-2), ("float32", 1e-3)):
+        c = dataclasses.replace(cfg, dtype=dtype)
+        p = params if dtype == cfg.dtype else _tree_map(lambda t: t.float(), params)
+        model = Model(c)
+        dev = model.device
+        prompts = [torch.tensor([t], dtype=torch.int32, device=dev) for t in toks]
+        full = [model.prefill(p, {"tokens": t})[0][0, 0] for t in prompts]
+        cache = model.init_cache(2, 512)
+        for row, (t, n) in enumerate(zip(prompts, ns)):
+            _, rc = model.prefill(p, {"tokens": t[:, : n - 4]}, model.init_cache(1, 512))
+            ServeEngine.insert_row(cache, rc, row)
+        for i in range(4):
+            tok = torch.cat([t[:, n - 4 + i : n - 3 + i] for t, n in zip(prompts, ns)])
+            pos = torch.tensor([n - 4 + i for n in ns], dtype=torch.int32, device=dev)
+            dec, _ = model.decode_step(p, cache, tok, pos)
+        errs = [rel_err(dec[i, 0], full[i]) for i in range(2)]
+        control = rel_err(dec[1, 0], full[0])
+        log(f"consistency {cfg.name} {dtype}: rel L2 err of prefill(S-4) + 4 decode steps vs "
+            f"prefill(S) logits, S = {ns}: {errs} (tol {tol}); control (row 1's decode vs "
+            f"row 0's prefill) {control:.4f}")
+        assert all(torch.isfinite(d).all() for d in full) and bool(torch.isfinite(dec).all())
+        assert max(errs) <= tol, errs
+        del p, cache
+
+
+def small_ssm_against_cpu(torch, np, ops):
+    """Reduced mamba2-370m (fp32) on the card through the kernels against
+    the same weights on the CPU through the plain versions: prompts of 1,
+    2 and 12 tokens prefilled into three rows, then 4 decode steps."""
+    from repro_torch.configs import reduced_config
+    from repro_torch.models import Model
+    from repro_torch.serve.engine import ServeEngine
+
+    tol = 1e-4
+    cfg = reduced_config("mamba2-370m")
+    cpu, gpu = Model(cfg, device="cpu"), Model(cfg)
+    p_cpu = cpu.init(torch.Generator().manual_seed(7))
+    p_gpu = _tree_to(p_cpu, gpu.device)
+    toks = np.random.default_rng(8).integers(0, cfg.vocab_size, (3, 16)).astype(np.int32)
+    lengths = [1, 2, 12]
+
+    def run(model, params):
+        dev = model.device
+        cache = model.init_cache(3, 32)
+        outs = []
+        for row, n in enumerate(lengths):
+            tok = torch.from_numpy(toks[row : row + 1, :n]).to(dev)
+            logits, rc = model.prefill(params, {"tokens": tok}, model.init_cache(1, 32))
+            ServeEngine.insert_row(cache, rc, row)
+            outs.append(logits.cpu())
+        for i in range(4):
+            tok = torch.from_numpy(np.stack([toks[r, n + i : n + i + 1] for r, n in enumerate(lengths)]))
+            pos = torch.tensor([n + i for n in lengths], dtype=torch.int32, device=dev)
+            outs.append(model.decode_step(params, cache, tok.to(dev), pos)[0].cpu())
+        return outs
+
+    n = ops.LAUNCHES["ssd_scan"]
+    worst = max(
+        (a - b).abs().max().item() for a, b in zip(run(gpu, p_gpu), run(cpu, p_cpu))
+    )
+    assert ops.LAUNCHES["ssd_scan"] - n == len(lengths) * cfg.n_layers, "the SSD kernel did not run"
+    log(f"small ssm model: cuda kernels vs cpu plain path, prefills of {lengths} + 4 decode "
+        f"steps, max abs logit err {worst:.3e} (tol {tol})")
+    assert worst <= tol, worst
+
+
+def _tree_map(fn, tree):
+    return {k: _tree_map(fn, v) if isinstance(v, dict) else fn(v) for k, v in tree.items()}
+
+
 def _tree_to(tree, device):
-    return {k: _tree_to(v, device) if isinstance(v, dict) else v.to(device) for k, v in tree.items()}
+    return _tree_map(lambda t: t.to(device), tree)
 
 
 def profile_decode(torch, cfg, params, batch: int = 4, steps: int = 5):
@@ -345,14 +533,14 @@ def profile_decode(torch, cfg, params, batch: int = 4, steps: int = 5):
     kernels = [e for e in prof.key_averages() if e.device_type.name == "CUDA"]
     busy_us = sum(e.self_device_time_total for e in kernels)
     if not busy_us:
-        log("profile: the profiler recorded no device time; busy share not measured")
+        log(f"profile {cfg.name}: the profiler recorded no device time; busy share not measured")
         return
     n_launch = sum(e.count for e in kernels)
-    log(f"profile: decode at batch {batch}, {steps} steps: wall {wall_us / steps / 1e3:.3f} ms/step "
+    log(f"profile {cfg.name}: decode at batch {batch}, {steps} steps: wall {wall_us / steps / 1e3:.3f} ms/step "
         f"(profiled), device busy {busy_us / steps / 1e3:.3f} ms/step = "
         f"{busy_us / wall_us:.4f} of wall, {n_launch / steps:.0f} kernels/step")
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]:
-        log(f"profile:   {e.self_device_time_total / steps / 1e3:8.4f} ms/step "
+        log(f"profile {cfg.name}:   {e.self_device_time_total / steps / 1e3:8.4f} ms/step "
             f"{e.count // steps:5d}/step  {e.key[:90]}")
 
 
@@ -409,21 +597,21 @@ def main() -> int:
 
     # 3. kernels against their plain versions
     timer = Timer(torch, dev)
-    results = rmsnorm_cases(torch, ops, ref, timer, dev) + flash_cases(torch, ops, ref, timer, dev)
+    results = (rmsnorm_cases(torch, ops, ref, timer, dev) + flash_cases(torch, ops, ref, timer, dev)
+               + ssd_cases(torch, ops, ref, timer, dev))
     for r in results:
         log("case: " + json.dumps(r))
     bad = [r["case"] for r in results if not r["ok"]]
     assert not bad, f"kernels disagree with their plain versions: {bad}"
 
-    # 4. serve at full width (the main path)
+    # 4. serve deepseek-7b at full width (main path 1)
     cfg = get_config("deepseek-7b")
-    t0 = time.perf_counter()
-    params = Model(cfg).init(torch.Generator(device=dev).manual_seed(0))
-    torch.cuda.synchronize()
-    n_params = sum(t.numel() for t in _leaves(params))
-    log(f"init: deepseek-7b {cfg.n_layers} layers, {n_params} params in bf16, "
-        f"{time.perf_counter() - t0:.1f} s")
-    launches = serve(torch, np, cfg, params, ops)
+    params = init_params(torch, Model, cfg, dev)
+    n = cfg.n_layers
+    path_launches = {cfg.name: serve(
+        torch, np, cfg, params, ops, lengths=[200, 5, 83, 161, 44, 122],
+        per_pass={"rmsnorm": (2 * n + 1,) * 2, "flash_attention": (n, n), "ssd_scan": (0, 0)},
+    )}
 
     # 5. checks
     prefill_decode_consistency(torch, np, cfg, params)
@@ -432,20 +620,42 @@ def main() -> int:
     # 6. where a decode step's time goes, and the calibrated curve
     profile_decode(torch, cfg, params)
     calibrate_phase(cfg, params, card)
+    del params
+    torch.cuda.empty_cache()
 
-    # one line per kernel, at its main-path decode shape
-    chosen = {"rmsnorm": "bfloat16 rows=8 D=4096", "flash_attention": "decode bfloat16"}
+    # 7. serve mamba2-370m at full width (main path 2), and its checks
+    cfg = get_config("mamba2-370m")
+    params = init_params(torch, Model, cfg, dev)
+    n = cfg.n_layers
+    # per pass: ln1 and the gated norm in every layer plus the final norm
+    # (97); one SSD scan per layer on prefill, none on decode
+    path_launches[cfg.name] = serve(
+        torch, np, cfg, params, ops, lengths=[1, 2, 5, 83, 200, 300],
+        per_pass={"rmsnorm": (2 * n + 1,) * 2, "flash_attention": (0, 0), "ssd_scan": (n, 0)},
+    )
+    ssm_prefill_decode_consistency(torch, np, cfg, params)
+    small_ssm_against_cpu(torch, np, ops)
+    profile_decode(torch, cfg, params)
+
+    # one line per kernel, at its main-path shape; launches summed over the
+    # two main paths' serve runs
     line = []
-    for name, source, replaces in (
-        ("rmsnorm", "src/repro_torch/csrc/rmsnorm.cu", "src/repro/kernels/rmsnorm.py:24"),
+    for name, source, replaces, chosen in (
+        ("rmsnorm", "src/repro_torch/csrc/rmsnorm.cu", "src/repro/kernels/rmsnorm.py:24",
+         "bfloat16 rows=8 D=4096"),
         ("flash_attention", "src/repro_torch/csrc/flash_attention.cu",
-         "src/repro/kernels/flash_attention.py:87"),
+         "src/repro/kernels/flash_attention.py:87", "decode bfloat16"),
+        ("ssd_scan", "src/repro_torch/csrc/ssd_scan.cu", "src/repro/kernels/ssd_scan.py:98",
+         "prefill bfloat16 B=1 S=512 H=32 P=64 N=128 chunk=128 y=float32"),
     ):
         mine = [r for r in results if r["kernel"] == name]
-        rep = next(r for r in mine if r["case"].startswith(chosen[name]))
+        rep = next(r for r in mine if r["case"].startswith(chosen))
+        by_path = {arch: counts[name] for arch, counts in path_launches.items()}
+        assert sum(by_path.values()) > 0, f"{name} was not launched on its path"
         line.append(dict(
             name=name, route="cuda", source=source, replaces=replaces,
-            launches=launches[name], max_abs_err=max(r["max_abs_err"] for r in mine),
+            launches=sum(by_path.values()), launches_by_path=by_path,
+            max_abs_err=max(r["max_abs_err"] for r in mine),
             ms=rep["ms"], plain_ms=rep["plain_ms"], bound_ms=rep["bound_ms"],
             bound_by=rep["bound_by"], library_ms=rep["library_ms"], case=rep["case"],
         ))
@@ -455,6 +665,16 @@ def main() -> int:
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
     return 0
+
+
+def init_params(torch, Model, cfg, dev):
+    t0 = time.perf_counter()
+    params = Model(cfg).init(torch.Generator(device=dev).manual_seed(0))
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in _leaves(params))
+    log(f"init: {cfg.name} {cfg.n_layers} layers, {n_params} params in {cfg.dtype}, "
+        f"{time.perf_counter() - t0:.1f} s")
+    return params
 
 
 def _leaves(tree):

@@ -1,7 +1,8 @@
 """Registry of the architectures the port serves so far.
 
-Only ``deepseek-7b`` is registered; the other families' configs come with
-the slices that port their layers (ROADMAP.md, queue A items 6-8).
+``deepseek-7b`` (dense) and ``mamba2-370m`` (ssm) are registered; the
+other families' configs come with the slices that port their layers
+(ROADMAP.md, queue A items 7-8).
 """
 from __future__ import annotations
 

@@ -32,6 +32,11 @@ SIGNATURES = {
     # q, k, v, q_pos, q_pos_bstride, kv_pos, out, B, Sq, T, H, G, K,
     # causal, has_window, window, dtype, stream
     "flash_attention_fwd": (_P, _P, _P, _P, _I64, _P, _P) + (_I,) * 10 + (_P,),
+    # x, x_bstride, x_sstride, dt, A, Bm, b_bstride, b_sstride, Cm,
+    # c_bstride, c_sstride, init_state, y, state, B, S, H, P, N, chunk,
+    # dtype, out_dtype, stream
+    "ssd_scan_fwd": (_P, _I64, _I64, _P, _P, _P, _I64, _I64, _P, _I64, _I64,
+                     _P, _P, _P) + (_I,) * 8 + (_P,),
 }
 
 _lib: Optional[ctypes.CDLL] = None

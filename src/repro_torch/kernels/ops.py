@@ -10,20 +10,22 @@ incremented right after a launch succeeds and nowhere else, so a run can
 show that its main path went through the kernels.
 
 The JAX package's ``custom_vjp`` backward of flash attention
-(``repro/kernels/ops.py``) waits for the training slice.
+(``repro/kernels/ops.py``) and any backward of the SSD scan wait for the
+training slice.
 """
 from __future__ import annotations
 
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 import torch
 
 from . import _build, ref
 
-LAUNCHES: Dict[str, int] = {"rmsnorm": 0, "flash_attention": 0}
+LAUNCHES: Dict[str, int] = {"rmsnorm": 0, "flash_attention": 0, "ssd_scan": 0}
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_DIMS = (64, 128)
+_SSD_SIZES = (16, 32, 64, 128)  # the SSD kernel's P, N and chunk
 
 
 def reset_launches() -> None:
@@ -51,12 +53,12 @@ def _check_launch(name: str, err: int) -> None:
     LAUNCHES[name] += 1
 
 
-def _dtype_code(t: torch.Tensor, what: str) -> int:
+def _dtype_code(dtype: torch.dtype, what: str) -> int:
     try:
-        return _DTYPE_CODES[t.dtype]
+        return _DTYPE_CODES[dtype]
     except KeyError:
         raise TypeError(
-            f"{what}: dtype {t.dtype} not supported (float32 or bfloat16)"
+            f"{what}: dtype {dtype} not supported (float32 or bfloat16)"
         ) from None
 
 
@@ -87,7 +89,7 @@ def rmsnorm(
         )
     if not (x.is_contiguous() and scale.is_contiguous()):
         raise ValueError("rmsnorm: x and scale must be contiguous")
-    code = _dtype_code(x, "rmsnorm")
+    code = _dtype_code(x.dtype, "rmsnorm")
     out = torch.empty_like(x)
     rows = x.numel() // D if D else 0
     if rows == 0:
@@ -133,7 +135,7 @@ def flash_attention(
             f"flash_attention: q/k/v dtypes differ: {q.dtype}, {k.dtype}, "
             f"{v.dtype}"
         )
-    code = _dtype_code(q, "flash_attention")
+    code = _dtype_code(q.dtype, "flash_attention")
     if q_pos.shape == (Sq,):
         q_pos_bstride = 0
     elif q_pos.shape == (B, Sq):
@@ -164,3 +166,82 @@ def flash_attention(
     )
     _check_launch("flash_attention", err)
     return out
+
+
+def ssd_scan(
+    x: torch.Tensor,  # [B,S,H,P]
+    dt: torch.Tensor,  # [B,S,H] float32, softplus applied
+    A: torch.Tensor,  # [H] float32, negative
+    Bm: torch.Tensor,  # [B,S,N]
+    Cm: torch.Tensor,  # [B,S,N]
+    chunk: int,
+    init_state: Optional[torch.Tensor] = None,  # [B,H,N,P] float32
+    out_dtype: Optional[torch.dtype] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Mamba2 SSD chunked scan, forward.  Returns (y [B,S,H,P] in
+    ``out_dtype``, default x's dtype; final state [B,H,N,P] float32).
+
+    x, B and C are float32 or bfloat16 (one type for the three) and may be
+    strided over batch and sequence, as slices of one xBC tensor are; their
+    last axis (and x's head axis) must be dense.  P, N and chunk are each
+    one of 16, 32, 64, 128; S >= 1, and S need not be a chunk multiple.
+    On a CPU tensor this runs ``ref.ssd_chunked_ref``, the chunked
+    algorithm of the JAX model."""
+    Bsz, S, H, P = x.shape
+    N = Bm.shape[-1]
+    out_dtype = out_dtype or x.dtype
+    if dt.shape != (Bsz, S, H) or A.shape != (H,):
+        raise ValueError(
+            f"ssd_scan: dt must be [B,S,H]={Bsz, S, H} and A [H]={H}, got "
+            f"{tuple(dt.shape)} and {tuple(A.shape)}"
+        )
+    if Bm.shape != (Bsz, S, N) or Cm.shape != Bm.shape:
+        raise ValueError(
+            f"ssd_scan: B and C must be [B,S,N] with B,S={Bsz, S}, got "
+            f"{tuple(Bm.shape)} and {tuple(Cm.shape)}"
+        )
+    if init_state is not None and (
+        init_state.shape != (Bsz, H, N, P) or init_state.dtype != torch.float32
+    ):
+        raise ValueError(
+            f"ssd_scan: init_state must be float32 [B,H,N,P]={Bsz, H, N, P}, "
+            f"got {init_state.dtype} {tuple(init_state.shape)}"
+        )
+    if S < 1 or Bsz < 1:
+        raise ValueError(f"ssd_scan: needs B >= 1 and S >= 1, got B={Bsz}, S={S}")
+    for what, v in (("P", P), ("N", N), ("chunk", chunk)):
+        if v not in _SSD_SIZES:
+            raise ValueError(f"ssd_scan: {what}={v} not supported (one of {_SSD_SIZES})")
+    if not (x.dtype == Bm.dtype == Cm.dtype):
+        raise TypeError(
+            f"ssd_scan: x, B and C dtypes differ: {x.dtype}, {Bm.dtype}, {Cm.dtype}"
+        )
+    if dt.dtype != torch.float32 or A.dtype != torch.float32:
+        raise TypeError("ssd_scan: dt and A must be float32")
+    code = _dtype_code(x.dtype, "ssd_scan")
+    out_code = _dtype_code(out_dtype, "ssd_scan out_dtype")
+    tensors = (x, dt, A, Bm, Cm) + ((init_state,) if init_state is not None else ())
+    if _on_cpu(*tensors):
+        y, state = ref.ssd_chunked_ref(x, dt, A, Bm, Cm, chunk, init_state)
+        return y.to(out_dtype), state
+    if x.stride(3) != 1 or x.stride(2) != P or Bm.stride(2) != 1 or Cm.stride(2) != 1:
+        raise ValueError(
+            "ssd_scan: x must be dense over [H,P] and B, C over N "
+            f"(strides {x.stride()}, {Bm.stride()}, {Cm.stride()})"
+        )
+    if not (dt.is_contiguous() and A.is_contiguous()):
+        raise ValueError("ssd_scan: dt and A must be contiguous")
+    if init_state is not None and not init_state.is_contiguous():
+        raise ValueError("ssd_scan: init_state must be contiguous")
+    y = torch.empty((Bsz, S, H, P), dtype=out_dtype, device=x.device)
+    state = torch.empty((Bsz, H, N, P), dtype=torch.float32, device=x.device)
+    err = _build.load().ssd_scan_fwd(
+        x.data_ptr(), x.stride(0), x.stride(1), dt.data_ptr(), A.data_ptr(),
+        Bm.data_ptr(), Bm.stride(0), Bm.stride(1),
+        Cm.data_ptr(), Cm.stride(0), Cm.stride(1),
+        init_state.data_ptr() if init_state is not None else None,
+        y.data_ptr(), state.data_ptr(), Bsz, S, H, P, N, chunk, code, out_code,
+        _stream(x),
+    )
+    _check_launch("ssd_scan", err)
+    return y, state

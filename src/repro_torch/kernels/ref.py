@@ -6,7 +6,7 @@ against them on the card.
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
@@ -63,3 +63,93 @@ def rmsnorm_ref(
     xf = x.float()
     var = torch.mean(xf * xf, dim=-1, keepdim=True)
     return (xf * torch.rsqrt(var + eps) * scale.float()).to(x.dtype)
+
+
+def ssd_scan_ref(
+    x: torch.Tensor,  # [B,S,H,P]
+    dt: torch.Tensor,  # [B,S,H] (softplus applied)
+    A: torch.Tensor,  # [H], negative
+    Bm: torch.Tensor,  # [B,S,N]
+    Cm: torch.Tensor,  # [B,S,N]
+    init_state: Optional[torch.Tensor] = None,  # [B,H,N,P]
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The sequential SSD recurrence in fp32, one token at a time:
+    ``h_t = exp(dt_t A) h_{t-1} + dt_t B_t x_t``, ``y_t = C_t . h_t``.
+    Returns (y [B,S,H,P] fp32, final state [B,H,N,P] fp32).  The tests'
+    ground truth; O(S) Python steps, so no path of the port runs it."""
+    Bsz, S, H, P = x.shape
+    N = Bm.shape[-1]
+    xf, dtf, Bf, Cf = (t.float() for t in (x, dt, Bm, Cm))
+    h = (
+        init_state.float().clone()
+        if init_state is not None
+        else torch.zeros(Bsz, H, N, P, dtype=torch.float32, device=x.device)
+    )
+    ys = []
+    for t in range(S):
+        decay = torch.exp(dtf[:, t] * A.float())  # [B,H]
+        h = decay[:, :, None, None] * h + torch.einsum(
+            "bh,bn,bhp->bhnp", dtf[:, t], Bf[:, t], xf[:, t]
+        )
+        ys.append(torch.einsum("bn,bhnp->bhp", Cf[:, t], h))
+    y = torch.stack(ys, dim=1) if ys else xf.new_zeros(Bsz, 0, H, P)
+    return y, h
+
+
+def ssd_chunked_ref(
+    x: torch.Tensor,  # [B,S,H,P]
+    dt: torch.Tensor,  # [B,S,H] (softplus applied)
+    A: torch.Tensor,  # [H], negative
+    Bm: torch.Tensor,  # [B,S,N]
+    Cm: torch.Tensor,  # [B,S,N]
+    chunk: int,
+    init_state: Optional[torch.Tensor] = None,  # [B,H,N,P]
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The chunked SSD algorithm of ``repro.models.mamba.ssd_chunked``, in
+    fp32: an intra-chunk quadratic term plus an inter-chunk state
+    recurrence.  S is zero-padded to a chunk multiple (dt = 0 there, so the
+    pad is a no-op).  Returns (y [B,S,H,P] fp32, final state [B,H,N,P]
+    fp32)."""
+    Bsz, S, H, P = x.shape
+    N = Bm.shape[-1]
+    pad = (-S) % chunk
+    xf, dtf, Bf, Cf = (
+        torch.nn.functional.pad(t.float(), (0, 0) * (t.ndim - 2) + (0, pad))
+        for t in (x, dt, Bm, Cm)
+    )
+    nc = (S + pad) // chunk
+    xc = xf.view(Bsz, nc, chunk, H, P)
+    dtc = dtf.view(Bsz, nc, chunk, H)
+    Bc = Bf.view(Bsz, nc, chunk, N)
+    Cc = Cf.view(Bsz, nc, chunk, N)
+
+    cum = torch.cumsum(dtc * A.float(), dim=2)  # [B,nc,Q,H], inclusive
+
+    # intra-chunk: W[i,j] = (C_i.B_j) exp(cum_i - cum_j) dt_j for j <= i.
+    # The mask selects before exp: exp(cum_i - cum_j) overflows for j > i.
+    CB = torch.einsum("bcin,bcjn->bcij", Cc, Bc)
+    diff = cum[:, :, :, None, :] - cum[:, :, None, :, :]  # [B,nc,Q(i),Q(j),H]
+    tri = torch.ones(chunk, chunk, dtype=torch.bool, device=x.device).tril()
+    decay = torch.exp(torch.where(tri[:, :, None], diff, torch.zeros_like(diff)))
+    L = torch.where(tri[:, :, None], decay, torch.zeros_like(decay))
+    W = CB[..., None] * L * dtc[:, :, None, :, :]
+    y = torch.einsum("bcijh,bcjhp->bcihp", W, xc)
+
+    # per-chunk states, then the recurrence over chunks
+    cum_last = cum[:, :, -1:, :]
+    states = torch.einsum(
+        "bcjh,bcjn,bcjhp->bchnp", torch.exp(cum_last - cum) * dtc, Bc, xc
+    )  # [B,nc,H,N,P]
+    chunk_decay = torch.exp(cum_last[:, :, 0, :])  # [B,nc,H]
+    h = (
+        init_state.float()
+        if init_state is not None
+        else torch.zeros(Bsz, H, N, P, dtype=torch.float32, device=x.device)
+    )
+    y_off = []
+    for c in range(nc):
+        # y from the incoming state: C_t . (exp(cum_t) h)
+        y_off.append(torch.einsum("bin,bhnp,bih->bihp", Cc[:, c], h, torch.exp(cum[:, c])))
+        h = chunk_decay[:, c, :, None, None] * h + states[:, c]
+    y = y + torch.stack(y_off, dim=1)
+    return y.reshape(Bsz, nc * chunk, H, P)[:, :S], h

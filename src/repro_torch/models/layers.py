@@ -44,15 +44,34 @@ def normal(
 
 
 def init_from_spec(gen: torch.Generator, spec: Any, dtype: torch.dtype) -> Any:
-    """Params for a (nested) spec of ``(shape, std)`` leaves: a seeded
-    normal draw in ``dtype``, or fp32 ones where the std is None (norm
-    scales).  Leaves are drawn in the spec's order."""
+    """Params for a (nested) spec of ``(shape, init)`` leaves, drawn in the
+    spec's order.  ``init`` is one of:
+
+    * a float std: a seeded normal draw in ``dtype``;
+    * None: fp32 ones (norm scales, Mamba's D skip);
+    * "zeros": zeros in ``dtype`` (the conv bias);
+    * ("log_uniform", lo, hi): fp32 ``log(U[lo, hi])`` (Mamba's A_log);
+    * ("softplus_inv_uniform", lo, hi): fp32 ``log(expm1(U[lo, hi]))``, the
+      inverse softplus of a uniform draw (Mamba's dt bias).
+    """
     if isinstance(spec, dict):
         return {k: init_from_spec(gen, v, dtype) for k, v in spec.items()}
-    shape, std = spec
-    if std is None:
-        return torch.ones(shape, dtype=torch.float32, device=gen.device)
-    return normal(gen, shape, std, dtype)
+    shape, init = spec
+    dev = gen.device
+    if init is None:
+        return torch.ones(shape, dtype=torch.float32, device=dev)
+    if init == "zeros":
+        return torch.zeros(shape, dtype=dtype, device=dev)
+    if isinstance(init, tuple):
+        kind, lo, hi = init
+        u = torch.rand(shape, generator=gen, device=dev, dtype=torch.float32)
+        u = u.mul_(hi - lo).add_(lo)
+        if kind == "log_uniform":
+            return torch.log(u)
+        if kind == "softplus_inv_uniform":
+            return torch.log(torch.expm1(u))
+        raise ValueError(f"unknown init kind {kind!r}")
+    return normal(gen, shape, init, dtype)
 
 
 # --------------------------------------------------------------------------

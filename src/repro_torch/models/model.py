@@ -1,8 +1,11 @@
-"""Model facade of the port: init / prefill / decode for the dense family.
+"""Model facade of the port: init / prefill / decode for the dense and ssm
+families.
 
 The JAX package scans over stacked blocks (``repro/models/model.py``); the
 port keeps the stacked ``[n_blocks, ...]`` parameter and cache leaves and
-loops over the block index.  Mamba, MoE and the frontend families raise
+loops over the block index, and within a block over the sub-layers of
+``cfg.layer_kinds()`` (mixer ``attn`` or ``mamba``, ff ``dense`` or
+``none``).  MoE and the hybrid, vlm and audio families raise
 ``NotImplementedError`` naming the ROADMAP.md item that will port them;
 ``Model.loss`` waits for the training slice (queue A item 5).
 """
@@ -14,14 +17,14 @@ import torch
 
 from ..configs.base import ArchConfig
 from . import layers as L
+from . import mamba as M
 
 Params = Dict[str, Any]
 Spec = Dict[str, Any]
 
 _NOT_PORTED = {
-    "ssm": "ROADMAP.md queue A item 6 (SSM)",
     "moe": "ROADMAP.md queue A item 7 (MoE)",
-    "hybrid": "ROADMAP.md queue A items 6-8 (SSM, MoE, hybrid)",
+    "hybrid": "ROADMAP.md queue A items 7-8 (MoE, hybrid)",
     "vlm": "ROADMAP.md queue A item 8 (remaining families)",
     "audio": "ROADMAP.md queue A item 8 (remaining families)",
 }
@@ -54,42 +57,58 @@ def _index(tree: Params, i: int) -> Params:
 def _apply_sub(
     sub: Params,
     cfg: ArchConfig,
+    mixer: str,
+    ff: str,
     h: torch.Tensor,
     q_pos: torch.Tensor,
     cache: Optional[Params],
     cache_index: L.CacheIndex,
-    self_attend: bool,
+    decode: bool,
 ) -> torch.Tensor:
     y = L.rms_norm(h, sub["ln1"])
-    y, _ = L.apply_attention(
-        sub["attn"], cfg, y, q_pos,
-        cache=cache, cache_index=cache_index, self_attend=self_attend,
-    )
+    if mixer == "attn":
+        # prefill attends over its own k/v; decode over the cache
+        y, _ = L.apply_attention(
+            sub["attn"], cfg, y, q_pos,
+            cache=cache, cache_index=cache_index, self_attend=not decode,
+        )
+    elif decode:
+        y = M.apply_mamba_decode(sub["mamba"], cfg, y, cache)
+    else:
+        y = M.apply_mamba(sub["mamba"], cfg, y, cache)
     h = h + y
+    if ff == "none":
+        return h
     y = L.rms_norm(h, sub["ln2"])
     return h + L.apply_mlp(sub["mlp"], cfg, y)
 
 
 def param_spec(cfg: ArchConfig) -> Spec:
-    """Nested dict of ``(shape, init std)`` per parameter leaf, in the JAX
-    package's tree layout; std None marks fp32 norm scales (ones).  Block
-    leaves are stacked, with ``n_blocks`` in front."""
+    """Nested dict of ``(shape, init)`` per parameter leaf, in the JAX
+    package's tree layout (see ``layers.init_from_spec`` for the init
+    kinds).  Block leaves are stacked, with ``n_blocks`` in front."""
     nb = cfg.n_scan_blocks
 
     def stacked(spec: Spec) -> Spec:
-        return {k: ((nb,) + shape, std) for k, (shape, std) in spec.items()}
+        return {k: ((nb,) + shape, init) for k, (shape, init) in spec.items()}
 
     norm = ((nb, cfg.d_model), None)
+    blocks: Spec = {}
+    for i, (mixer, ff) in enumerate(cfg.layer_kinds()):
+        sub: Spec = {"ln1": norm}
+        if mixer == "attn":
+            sub["attn"] = stacked(L.attention_spec(cfg))
+        else:
+            sub["mamba"] = stacked(M.mamba_spec(cfg))
+        if ff == "dense":
+            sub["ln2"] = norm
+            sub["mlp"] = stacked(L.mlp_spec(cfg))
+        elif ff == "moe":
+            raise NotImplementedError(f"{cfg.name}: MoE layers are {_NOT_PORTED['moe']}")
+        blocks[f"sub{i}"] = sub
     return {
         "embed": L.embedding_spec(cfg),
-        "blocks": {
-            "sub0": {
-                "ln1": norm,
-                "attn": stacked(L.attention_spec(cfg)),
-                "ln2": norm,
-                "mlp": stacked(L.mlp_spec(cfg)),
-            }
-        },
+        "blocks": blocks,
         "final_norm": ((cfg.d_model,), None),
     }
 
@@ -103,6 +122,7 @@ class Model:
             )
         self.cfg = cfg
         self.device = resolve_device(device)
+        self.kinds = cfg.layer_kinds()
         self.n_blocks = cfg.n_scan_blocks
 
     def init(self, generator: torch.Generator) -> Params:
@@ -123,16 +143,17 @@ class Model:
         q_pos: torch.Tensor,
         cache: Optional[Params] = None,
         cache_index: L.CacheIndex = None,
-        self_attend: bool = True,
+        decode: bool = False,
     ) -> torch.Tensor:
         for i in range(self.n_blocks):
             block = _index(params["blocks"], i)
             block_cache = _index(cache, i) if cache is not None else None
-            h = _apply_sub(
-                block["sub0"], self.cfg, h, q_pos,
-                block_cache["sub0"] if block_cache else None,
-                cache_index, self_attend,
-            )
+            for j, (mixer, ff) in enumerate(self.kinds):
+                h = _apply_sub(
+                    block[f"sub{j}"], self.cfg, mixer, ff, h, q_pos,
+                    block_cache[f"sub{j}"] if block_cache else None,
+                    cache_index, decode,
+                )
         return h
 
     # ---- public API -----------------------------------------------------
@@ -140,18 +161,22 @@ class Model:
     def init_cache(
         self, batch: int, max_len: int, dtype: Optional[torch.dtype] = None
     ) -> Params:
-        """Zeroed KV cache ``{"sub0": {"k","v": [n_blocks,B,W,G,K],
-        "pos": [n_blocks,1,W]}}`` on the model's device; ``pos`` -1 marks
-        unwritten slots."""
-        one = L.init_attn_cache(
-            self.cfg, batch, max_len, dtype or L.dtype_of(self.cfg), self.device
-        )
-        return {
-            "sub0": {
+        """Zeroed cache on the model's device, one entry per sub-layer:
+        attention ``{"k","v": [n_blocks,B,W,G,K], "pos": [n_blocks,1,W]}``
+        (``pos`` -1 marks unwritten slots), Mamba ``{"conv":
+        [n_blocks,B,k-1,Ch], "ssm": [n_blocks,B,H,N,P] fp32}``."""
+        dtype = dtype or L.dtype_of(self.cfg)
+        out: Params = {}
+        for j, (mixer, _) in enumerate(self.kinds):
+            if mixer == "attn":
+                one = L.init_attn_cache(self.cfg, batch, max_len, dtype, self.device)
+            else:
+                one = M.init_mamba_cache(self.cfg, batch, dtype, self.device)
+            out[f"sub{j}"] = {
                 k: v[None].repeat((self.n_blocks,) + (1,) * v.ndim)
                 for k, v in one.items()
             }
-        }
+        return out
 
     def prefill(
         self,
@@ -165,7 +190,7 @@ class Model:
         h = L.embed_tokens(params["embed"], tokens)
         S = tokens.shape[1]
         q_pos = torch.arange(S, dtype=torch.int32, device=h.device)
-        h = self._backbone(params, h, q_pos, cache=cache, cache_index=0, self_attend=True)
+        h = self._backbone(params, h, q_pos, cache=cache, cache_index=0)
         h = L.rms_norm(h, params["final_norm"])
         return L.unembed(params["embed"], self.cfg, h[:, -1:, :]), cache
 
@@ -184,6 +209,6 @@ class Model:
         h = L.embed_tokens(params["embed"], tokens)
         pos = torch.as_tensor(pos, dtype=torch.int32, device=h.device)
         q_pos = pos[None] if pos.ndim == 0 else pos[:, None]
-        h = self._backbone(params, h, q_pos, cache=cache, cache_index=pos, self_attend=False)
+        h = self._backbone(params, h, q_pos, cache=cache, cache_index=pos, decode=True)
         h = L.rms_norm(h, params["final_norm"])
         return L.unembed(params["embed"], self.cfg, h), cache

@@ -123,10 +123,10 @@ class ServeEngine:
     @staticmethod
     def insert_row(cache: Params, row_cache: Params, row: int) -> Params:
         """Scatter a solo-prefilled (B=1) cache into batch row ``row``, in
-        place.  k/v leaves ``[n_blocks, B, ...]``: the whole row is
-        replaced, clearing any previous occupant.  The shared ``pos`` leaf
-        ``[n_blocks, 1, W]`` merges by max: values are slot-or--1, and
-        every row writes position == slot."""
+        place.  k/v and Mamba conv/ssm leaves ``[n_blocks, B, ...]``: the
+        whole row is replaced, clearing any previous occupant.  The shared
+        attention ``pos`` leaf ``[n_blocks, 1, W]`` merges by max: values
+        are slot-or--1, and every row writes position == slot."""
         for sub, leaves in cache.items():
             for name, t in leaves.items():
                 r = row_cache[sub][name]

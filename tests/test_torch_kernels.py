@@ -144,7 +144,9 @@ def test_wrappers_dispatch_on_tensor_device():
     ops.rmsnorm(x, torch.ones(8))
     q, k, v, qpos, kpos = (torch.tensor(a) for a in _mk(1, 2, 4, 2, 2, 64))
     ops.flash_attention(q, k, v, qpos, kpos)
-    assert ops.LAUNCHES == {"rmsnorm": 0, "flash_attention": 0}
+    x4 = torch.ones(1, 3, 2, 16)
+    ops.ssd_scan(x4, torch.ones(1, 3, 2), -torch.ones(2), torch.ones(1, 3, 16), torch.ones(1, 3, 16), 16)
+    assert ops.LAUNCHES == {"rmsnorm": 0, "flash_attention": 0, "ssd_scan": 0}
     with pytest.raises(ValueError, match="one CUDA device"):
         ops.rmsnorm(x, torch.ones(8, device="meta"))
 

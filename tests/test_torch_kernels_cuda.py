@@ -1,6 +1,7 @@
-"""The port's CUDA kernels against their plain PyTorch versions, on the
-card.  Every test here is marked ``cuda`` and skips without a CUDA device;
-the file imports no JAX, so it runs where only PyTorch is installed:
+"""The port's CUDA kernels (RMSNorm, flash attention, SSD scan) against
+their plain PyTorch versions, on the card.  Every test here is marked
+``cuda`` and skips without a CUDA device; the file imports no JAX, so it
+runs where only PyTorch is installed:
 
     PYTHONPATH=src python -m pytest -m cuda tests/test_torch_kernels_cuda.py -q
 """
@@ -71,3 +72,59 @@ def test_flash_kernel_per_row_decode_matches_plain(cuda_device):
     want = ref.flash_attention_ref(q, k, v, qpos, kpos, True, None)
     assert bool(torch.isfinite(out).all())
     torch.testing.assert_close(out.float(), want.float(), atol=2e-2, rtol=2e-2)
+
+
+def _ssd_inputs(B, S, H, P, N, dtype, device, seed=0):
+    gen = torch.Generator(device=device).manual_seed(seed)
+    x = torch.randn(B, S, H, P, generator=gen, device=device).to(_TDT[dtype])
+    dt = torch.rand(B, S, H, generator=gen, device=device) * 0.099 + 0.001
+    A = -(torch.rand(H, generator=gen, device=device) * 3.5 + 0.5)
+    Bm = torch.randn(B, S, N, generator=gen, device=device).to(_TDT[dtype])
+    Cm = torch.randn(B, S, N, generator=gen, device=device).to(_TDT[dtype])
+    return x, dt, A, Bm, Cm
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(
+    "B,S,H,P,N,chunk",
+    [(1, 512, 32, 64, 128, 128),  # the mamba2-370m prefill shape
+     (1, 200, 32, 64, 128, 128),  # tail chunk
+     (2, 256, 4, 64, 128, 128), (1, 256, 2, 32, 64, 64), (2, 96, 2, 64, 128, 32),
+     (1, 200, 3, 16, 32, 64), (1, 37, 8, 16, 16, 16), (1, 1, 4, 128, 128, 16)],
+)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_ssd_kernel_matches_plain(cuda_device, B, S, H, P, N, chunk, dtype):
+    args = _ssd_inputs(B, S, H, P, N, dtype, cuda_device)
+    n = ops.LAUNCHES["ssd_scan"]
+    y, state = ops.ssd_scan(*args, chunk)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["ssd_scan"] == n + 1
+    assert y.dtype == args[0].dtype and state.dtype == torch.float32
+    y_want, s_want = ref.ssd_chunked_ref(*args, chunk)
+    tol = 2e-4 if dtype == "float32" else 5e-2
+    torch.testing.assert_close(y.float(), y_want, atol=tol, rtol=tol)
+    torch.testing.assert_close(state, s_want, atol=tol, rtol=tol)
+    torch.testing.assert_close(state, ref.ssd_scan_ref(*args)[1], atol=tol, rtol=tol)
+
+
+@pytest.mark.cuda
+def test_ssd_kernel_init_state_and_strided_inputs(cuda_device):
+    """Slices of one xBC tensor (the model path), an fp32 y, and the first
+    half's state fed into the second half."""
+    B, S, H, P, N = 1, 300, 32, 64, 128
+    gen = torch.Generator(device=cuda_device).manual_seed(2)
+    xbc = torch.randn(B, S, H * P + 2 * N, generator=gen, device=cuda_device).bfloat16()
+    x = xbc[..., : H * P].view(B, S, H, P)
+    Bm, Cm = xbc[..., H * P : H * P + N], xbc[..., H * P + N :]
+    dt = torch.rand(B, S, H, generator=gen, device=cuda_device) * 0.099 + 0.001
+    A = -(torch.rand(H, generator=gen, device=cuda_device) * 3.5 + 0.5)
+    y, s = ops.ssd_scan(x, dt, A, Bm, Cm, 128, out_dtype=torch.float32)
+    y_want, s_want = ref.ssd_chunked_ref(x, dt, A, Bm, Cm, 128)
+    assert y.dtype == torch.float32
+    torch.testing.assert_close(y, y_want, atol=2e-4, rtol=2e-4)
+    torch.testing.assert_close(s, s_want, atol=2e-4, rtol=2e-4)
+    _, s1 = ops.ssd_scan(x[:, :150], dt[:, :150], A, Bm[:, :150], Cm[:, :150], 128)
+    y2, s2 = ops.ssd_scan(x[:, 150:], dt[:, 150:], A, Bm[:, 150:], Cm[:, 150:], 128,
+                          init_state=s1, out_dtype=torch.float32)
+    torch.testing.assert_close(y2, y_want[:, 150:], atol=2e-4, rtol=2e-4)
+    torch.testing.assert_close(s2, s_want, atol=2e-4, rtol=2e-4)

@@ -13,6 +13,7 @@ from repro.configs import reduced_config  # noqa: E402
 from repro.models import Model as JModel  # noqa: E402
 from repro_torch.convert import params_from_jax  # noqa: E402
 from repro_torch.models import Model as TModel  # noqa: E402
+from repro_torch.models.model import param_spec  # noqa: E402
 
 CFG = reduced_config("deepseek-7b")
 TOL = 1e-4  # float32 logits after 2 blocks; sums run in another order
@@ -101,5 +102,25 @@ def test_entry_points_refuse_to_fall_back_to_cpu():
 
 
 def test_unported_families_name_their_roadmap_item():
-    with pytest.raises(NotImplementedError, match="queue A item 6"):
-        TModel(dataclasses.replace(CFG, family="ssm"), device="cpu")
+    moe = dataclasses.replace(CFG, family="moe", n_experts=4, top_k=2)
+    with pytest.raises(NotImplementedError, match="queue A item 7"):
+        TModel(moe, device="cpu")
+
+
+def test_dense_init_draws_in_spec_order():
+    """The spec's leaf kinds (added for Mamba) leave the dense draws as
+    they were: one fp32 normal per std leaf, in the spec's order, and no
+    draw for the fp32-ones norm scales."""
+    tp = TModel(CFG, device="cpu").init(torch.Generator().manual_seed(0))
+    gen = torch.Generator().manual_seed(0)
+
+    def replay(spec, got):
+        for k, leaf in spec.items():
+            if isinstance(leaf, dict):
+                replay(leaf, got[k])
+                continue
+            shape, std = leaf
+            want = torch.ones(shape) if std is None else torch.randn(shape, generator=gen) * std
+            torch.testing.assert_close(got[k], want, atol=0, rtol=0)
+
+    replay(param_spec(CFG), tp)
