@@ -14,9 +14,13 @@ Phases (any failure exits non-zero):
   4. serve    — main path 1: full-width, 30-layer deepseek-7b in bf16 from
                 a seeded generator; ServeEngine(max_len=512, batch_size=4)
                 serves 6 requests of 16 new tokens; every forward pass must
-                launch 61 RMSNorm and 30 attention kernels.
+                launch 61 RMSNorm and 30 attention kernels, a prefill's
+                through the tensor-core route (mma_prefill), a decode
+                step's through the decode route.
   5. checks   — prefill/decode consistency at full width, and a small model
-                on the card against the same model on the CPU (plain path).
+                on the card against the same model on the CPU (plain path);
+                in fp32 its prefill takes the FMA route and its decode
+                steps the decode route.
   6. calibrate — a profiled decode step (device busy share, time by kernel)
                 and the decode-step latency curve at batch 1, 8, 32, 128.
   7. ssm      — main path 2: full-width, 48-layer mamba2-370m in bf16;
@@ -140,8 +144,13 @@ def flash_cases(torch, ops, ref, timer, dev):
     import torch.nn.functional as F
 
     i32 = dict(dtype=torch.int32, device=dev)
+    ar = torch.arange(512, **i32)
     decode_q = torch.tensor([17, 63, 128, 200, 255, 301, 390, 447], **i32)[:, None]
-    decode_kv = torch.where(torch.arange(512, **i32) < 448, torch.arange(512, **i32), -1)
+    decode_kv = torch.where(ar < 448, ar, -1)
+    # the serve run's decode: rows at their own depths in one max_len-512
+    # cache written up to the deepest row, -1 beyond
+    serve_q = torch.tensor([215, 20, 98, 176], **i32)[:, None]
+    serve_kv = torch.where(ar < 216, ar, -1)
     cases = [
         # name, B, Sq, T, H, G, K, dtype, window, q_pos, kv_pos
         ("prefill", 1, 37, 37, 32, 32, 128, "bfloat16", None, None, None),
@@ -152,6 +161,11 @@ def flash_cases(torch, ops, ref, timer, dev):
         ("window", 1, 256, 256, 32, 32, 128, "bfloat16", 96, None, None),
         ("fully_masked", 1, 1, 100, 32, 32, 128, "float32", None,
          torch.tensor([5], **i32), torch.full((100,), -1, **i32)),
+        # the deepseek-7b serve run's own shapes
+        ("decode_serve", 4, 1, 512, 32, 32, 128, "bfloat16", None, serve_q, serve_kv),
+        ("decode", 1, 1, 512, 32, 32, 128, "bfloat16", None, decode_q[-1:], decode_kv),
+        ("prefill", 1, 200, 200, 32, 32, 128, "bfloat16", None, None, None),  # longest prompt
+        ("decode_gqa", 8, 1, 512, 32, 8, 128, "bfloat16", None, decode_q, decode_kv),
     ]
     gen = torch.Generator(device=dev).manual_seed(2)
     out = []
@@ -197,6 +211,7 @@ def flash_cases(torch, ops, ref, timer, dev):
             kernel="flash_attention",
             case=f"{name} {dtype} B={B} Sq={Sq} T={T} H={H} G={G} K={K}"
                  + (f" window={window}" if window else ""),
+            route=ops._flash_route(Sq, tdt),
             max_abs_err=err, tol=tol, ok=ok,
             ms=timer.ms(lambda: ops.flash_attention(q, k, v, qpos, kvpos, True, window)),
             plain_ms=timer.ms(lambda: ref.flash_attention_ref(q, k, v, qpos, kvpos, True, window)),
@@ -282,11 +297,13 @@ def ssd_cases(torch, ops, ref, timer, dev):
 # --------------------------------------------------------------------------
 
 
-def serve(torch, np, cfg, params, ops, lengths, per_pass):
+def serve(torch, np, cfg, params, ops, lengths, per_pass, flash_route=None):
     """Serve len(lengths) requests of 16 new tokens through ServeEngine at
     batch 4, with the launch counters set to 0 just before and read just
     after.  ``per_pass[kernel] = (per prefill, per decode step)``: the
-    launches each forward pass must make."""
+    launches each forward pass must make; ``flash_route[kind]``: the
+    flash-attention route all of a prefill's or decode step's attention
+    launches must take.  Returns (launches, flash launches by route)."""
     from repro_torch.serve.engine import Request, ServeEngine
 
     engine = ServeEngine(cfg, params, max_len=512, batch_size=4)
@@ -306,9 +323,10 @@ def serve(torch, np, cfg, params, ops, lengths, per_pass):
 
     def counted(kind, fn):
         def call(*args, **kwargs):
-            before = dict(ops.LAUNCHES)
+            before, routes = dict(ops.LAUNCHES), dict(ops.FLASH_ROUTES)
             out = fn(*args, **kwargs)
-            passes.append((kind, {k: ops.LAUNCHES[k] - before[k] for k in before}))
+            passes.append((kind, {k: ops.LAUNCHES[k] - before[k] for k in before},
+                           {r: ops.FLASH_ROUTES[r] - routes[r] for r in routes}))
             return out
         return call
 
@@ -326,16 +344,20 @@ def serve(torch, np, cfg, params, ops, lengths, per_pass):
     engine.generate(reqs)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = dict(ops.LAUNCHES)
+    launches, routes = dict(ops.LAUNCHES), dict(ops.FLASH_ROUTES)
 
     n_prefill = len(engine.call_seconds["prefill"])
     n_decode = len(engine.call_seconds["decode"])
     assert all(r.done and len(r.generated) == 16 for r in reqs), "a request did not finish"
     assert all(finite), "non-finite logits"
     assert len(passes) == n_prefill + n_decode, (len(passes), n_prefill, n_decode)
-    for kind, counts in passes:
+    for kind, counts, by_route in passes:
         want = {k: v[0 if kind == "prefill" else 1] for k, v in per_pass.items()}
         assert counts == want, (kind, counts, want)
+        want_routes = {r: 0 for r in by_route}
+        if flash_route:
+            want_routes[flash_route[kind]] = want["flash_attention"]
+        assert by_route == want_routes, (kind, by_route, want_routes)
     pre = sorted(engine.call_seconds["prefill"])
     dec = sorted(engine.call_seconds["decode"])
     n_tok = sum(len(r.generated) for r in reqs)
@@ -346,8 +368,8 @@ def serve(torch, np, cfg, params, ops, lengths, per_pass):
         f"{dec[len(dec) // 2] * 1e3:.3f} (min {dec[0] * 1e3:.3f}, max {dec[-1] * 1e3:.3f}); "
         f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     log(f"serve {cfg.name}: launches {launches} over {n_prefill} prefills + {n_decode} decode "
-        f"steps; per pass (prefill, decode) {per_pass}")
-    return launches
+        f"steps; per pass (prefill, decode) {per_pass}; flash by route {routes}")
+    return launches, routes
 
 
 def rel_err(a, b) -> float:
@@ -388,7 +410,7 @@ def prefill_decode_consistency(torch, np, cfg, params):
     assert max(errs) <= tol, errs
 
 
-def small_model_against_cpu(torch, np):
+def small_model_against_cpu(torch, np, ops):
     """A small model (head_dim 64, fp32) on the card through the kernels
     against the same weights on the CPU through the plain versions."""
     from repro_torch.configs import reduced_config
@@ -413,11 +435,15 @@ def small_model_against_cpu(torch, np):
             outs.append(model.decode_step(params, cache, tok, pos)[0].cpu())
         return outs
 
-    worst = max(
-        (a - b).abs().max().item() for a, b in zip(run(gpu, p_gpu), run(cpu, p_cpu))
-    )
+    before = dict(ops.FLASH_ROUTES)
+    out_gpu = run(gpu, p_gpu)
+    routes = {r: ops.FLASH_ROUTES[r] - before[r] for r in before}
+    # fp32: the prefill takes the FMA route, the decode steps the decode route
+    want = {"decode": 4 * cfg.n_layers, "mma_prefill": 0, "fma": cfg.n_layers}
+    assert routes == want, (routes, want)
+    worst = max((a - b).abs().max().item() for a, b in zip(out_gpu, run(cpu, p_cpu)))
     log(f"small model: cuda kernels vs cpu plain path, prefill + 4 decode steps, "
-        f"max abs logit err {worst:.3e} (tol {tol})")
+        f"max abs logit err {worst:.3e} (tol {tol}); flash by route {routes}")
     assert worst <= tol, worst
 
 
@@ -539,7 +565,8 @@ def profile_decode(torch, cfg, params, batch: int = 4, steps: int = 5):
     log(f"profile {cfg.name}: decode at batch {batch}, {steps} steps: wall {wall_us / steps / 1e3:.3f} ms/step "
         f"(profiled), device busy {busy_us / steps / 1e3:.3f} ms/step = "
         f"{busy_us / wall_us:.4f} of wall, {n_launch / steps:.0f} kernels/step")
-    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]:
+    ranked = sorted(kernels, key=lambda e: -e.self_device_time_total)
+    for e in ranked[:8] + [e for e in ranked[8:] if "flash" in e.key]:
         log(f"profile {cfg.name}:   {e.self_device_time_total / steps / 1e3:8.4f} ms/step "
             f"{e.count // steps:5d}/step  {e.key[:90]}")
 
@@ -608,14 +635,16 @@ def main() -> int:
     cfg = get_config("deepseek-7b")
     params = init_params(torch, Model, cfg, dev)
     n = cfg.n_layers
-    path_launches = {cfg.name: serve(
+    launches, flash_routes = serve(
         torch, np, cfg, params, ops, lengths=[200, 5, 83, 161, 44, 122],
         per_pass={"rmsnorm": (2 * n + 1,) * 2, "flash_attention": (n, n), "ssd_scan": (0, 0)},
-    )}
+        flash_route={"prefill": "mma_prefill", "decode": "decode"},
+    )
+    path_launches = {cfg.name: launches}
 
     # 5. checks
     prefill_decode_consistency(torch, np, cfg, params)
-    small_model_against_cpu(torch, np)
+    small_model_against_cpu(torch, np, ops)
 
     # 6. where a decode step's time goes, and the calibrated curve
     profile_decode(torch, cfg, params)
@@ -629,7 +658,7 @@ def main() -> int:
     n = cfg.n_layers
     # per pass: ln1 and the gated norm in every layer plus the final norm
     # (97); one SSD scan per layer on prefill, none on decode
-    path_launches[cfg.name] = serve(
+    path_launches[cfg.name], _ = serve(
         torch, np, cfg, params, ops, lengths=[1, 2, 5, 83, 200, 300],
         per_pass={"rmsnorm": (2 * n + 1,) * 2, "flash_attention": (0, 0), "ssd_scan": (n, 0)},
     )
@@ -644,7 +673,7 @@ def main() -> int:
         ("rmsnorm", "src/repro_torch/csrc/rmsnorm.cu", "src/repro/kernels/rmsnorm.py:24",
          "bfloat16 rows=8 D=4096"),
         ("flash_attention", "src/repro_torch/csrc/flash_attention.cu",
-         "src/repro/kernels/flash_attention.py:87", "decode bfloat16"),
+         "src/repro/kernels/flash_attention.py:87", "decode bfloat16 B=8"),
         ("ssd_scan", "src/repro_torch/csrc/ssd_scan.cu", "src/repro/kernels/ssd_scan.py:98",
          "prefill bfloat16 B=1 S=512 H=32 P=64 N=128 chunk=128 y=float32"),
     ):
@@ -655,6 +684,7 @@ def main() -> int:
         line.append(dict(
             name=name, route="cuda", source=source, replaces=replaces,
             launches=sum(by_path.values()), launches_by_path=by_path,
+            **({"launches_by_flash_route": flash_routes} if name == "flash_attention" else {}),
             max_abs_err=max(r["max_abs_err"] for r in mine),
             ms=rep["ms"], plain_ms=rep["plain_ms"], bound_ms=rep["bound_ms"],
             bound_by=rep["bound_by"], library_ms=rep["library_ms"], case=rep["case"],

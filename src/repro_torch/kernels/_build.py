@@ -30,8 +30,8 @@ SIGNATURES = {
     # x, scale, y, rows, D, eps, dtype, stream
     "rmsnorm_fwd": (_P, _P, _P, _I64, _I, _F, _I, _P),
     # q, k, v, q_pos, q_pos_bstride, kv_pos, out, B, Sq, T, H, G, K,
-    # causal, has_window, window, dtype, stream
-    "flash_attention_fwd": (_P, _P, _P, _P, _I64, _P, _P) + (_I,) * 10 + (_P,),
+    # causal, has_window, window, dtype, route, stream
+    "flash_attention_fwd": (_P, _P, _P, _P, _I64, _P, _P) + (_I,) * 11 + (_P,),
     # x, x_bstride, x_sstride, dt, A, Bm, b_bstride, b_sstride, Cm,
     # c_bstride, c_sstride, init_state, y, state, B, S, H, P, N, chunk,
     # dtype, out_dtype, stream

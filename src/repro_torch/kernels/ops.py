@@ -7,7 +7,9 @@ from the kernel to the plain version.
 
 ``LAUNCHES`` counts, per wrapper, the kernel launches it has made; it is
 incremented right after a launch succeeds and nowhere else, so a run can
-show that its main path went through the kernels.
+show that its main path went through the kernels.  ``FLASH_ROUTES``
+splits the flash-attention launches by the kernel each call ran
+(``_flash_route``).
 
 The JAX package's ``custom_vjp`` backward of flash attention
 (``repro/kernels/ops.py``) and any backward of the SSD scan wait for the
@@ -22,6 +24,8 @@ import torch
 from . import _build, ref
 
 LAUNCHES: Dict[str, int] = {"rmsnorm": 0, "flash_attention": 0, "ssd_scan": 0}
+FLASH_ROUTES: Dict[str, int] = {"decode": 0, "mma_prefill": 0, "fma": 0}
+_FLASH_ROUTE_CODES = {"fma": 0, "decode": 1, "mma_prefill": 2}  # csrc/flash_attention.cu
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_DIMS = (64, 128)
@@ -29,8 +33,9 @@ _SSD_SIZES = (16, 32, 64, 128)  # the SSD kernel's P, N and chunk
 
 
 def reset_launches() -> None:
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
+    for counts in (LAUNCHES, FLASH_ROUTES):
+        for name in counts:
+            counts[name] = 0
 
 
 def _on_cpu(*tensors: torch.Tensor) -> bool:
@@ -102,6 +107,16 @@ def rmsnorm(
     return out
 
 
+def _flash_route(Sq: int, dtype: torch.dtype) -> str:
+    """The flash-attention kernel a call on the card runs: ``decode`` (CUDA
+    cores, keys split among warps) for one query position in either type;
+    ``mma_prefill`` (tensor cores) for several in bfloat16; ``fma`` (fp32
+    FMA, which float32's tolerance needs) for several in float32."""
+    if Sq == 1:
+        return "decode"
+    return "mma_prefill" if dtype == torch.bfloat16 else "fma"
+
+
 def flash_attention(
     q: torch.Tensor,  # [B,Sq,H,K]
     k: torch.Tensor,  # [B,T,G,K]
@@ -113,7 +128,8 @@ def flash_attention(
 ) -> torch.Tensor:
     """Online-softmax GQA attention, forward.  Any Sq and T; the KV head of
     query head h is h // (H // G); masks come from the positions; output
-    in q's dtype.  On the card: head_dim 64 or 128, float32 or bfloat16."""
+    in q's dtype.  On the card: head_dim 64 or 128, float32 or bfloat16,
+    one launch of the kernel ``_flash_route`` names."""
     if _on_cpu(q, k, v, q_pos, kv_pos):
         return ref.flash_attention_ref(q, k, v, q_pos, kv_pos, causal, window)
     B, Sq, H, K = q.shape
@@ -158,13 +174,15 @@ def flash_attention(
     out = torch.empty_like(q)
     if out.numel() == 0:
         return out
+    route = _flash_route(Sq, q.dtype)
     err = _build.load().flash_attention_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), q_pos.data_ptr(),
         q_pos_bstride, kv_pos.data_ptr(), out.data_ptr(),
         B, Sq, T, H, G, K, int(causal), int(window is not None),
-        int(window or 0), code, _stream(q),
+        int(window or 0), code, _FLASH_ROUTE_CODES[route], _stream(q),
     )
     _check_launch("flash_attention", err)
+    FLASH_ROUTES[route] += 1
     return out
 
 

@@ -151,6 +151,28 @@ def test_wrappers_dispatch_on_tensor_device():
         ops.rmsnorm(x, torch.ones(8, device="meta"))
 
 
+@pytest.mark.parametrize(
+    "Sq,dtype,route",
+    [(1, torch.float32, "decode"), (1, torch.bfloat16, "decode"),
+     (2, torch.bfloat16, "mma_prefill"), (200, torch.bfloat16, "mma_prefill"),
+     (2, torch.float32, "fma"), (200, torch.float32, "fma")],
+)
+def test_flash_route_by_query_length_and_dtype(Sq, dtype, route):
+    """One query position takes the decode kernel in either type; several
+    take the tensor-core kernel in bfloat16 and the fp32 FMA kernel in
+    float32.  Every name has a code in the C entry point."""
+    assert ops._flash_route(Sq, dtype) == route
+    assert set(ops.FLASH_ROUTES) == set(ops._FLASH_ROUTE_CODES)
+
+
+def test_cpu_flash_counts_no_route_and_reset_clears_routes():
+    ops.FLASH_ROUTES["decode"] += 3
+    ops.reset_launches()
+    q, k, v, qpos, kpos = (torch.tensor(a) for a in _mk(1, 1, 4, 2, 2, 64))
+    ops.flash_attention(q, k, v, qpos, kpos)
+    assert ops.FLASH_ROUTES == {"decode": 0, "mma_prefill": 0, "fma": 0}
+
+
 # --------------------------------------------------------------------------
 # the build
 # --------------------------------------------------------------------------

@@ -74,6 +74,136 @@ def test_flash_kernel_per_row_decode_matches_plain(cuda_device):
     torch.testing.assert_close(out.float(), want.float(), atol=2e-2, rtol=2e-2)
 
 
+def _kv(B, T, G, K, dtype, device, seed):
+    gen = torch.Generator(device=device).manual_seed(seed)
+    return (torch.randn(B, T, G, K, generator=gen, device=device).to(_TDT[dtype]) for _ in "kv")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("K", [64, 128])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("Hg", [1, 4, 8])
+@pytest.mark.parametrize("T", [1, 31, 32, 33, 100, 512, 1000])
+def test_flash_decode_route_matches_plain(cuda_device, T, Hg, dtype, K):
+    """The decode route (Sq = 1): per-row q_pos over a cache with -1 tail
+    slots, with a row that sees no key (q_pos = -1), a row whose visible
+    keys all lie in the first warp's run (q_pos = 0), and rows at the middle
+    and the end; then the same queries over a cache with every slot -1."""
+    G = 2
+    H = G * Hg
+    gen = torch.Generator(device=cuda_device).manual_seed(T * 100 + Hg)
+    q = torch.randn(4, 1, H, K, generator=gen, device=cuda_device).to(_TDT[dtype])
+    k, v = _kv(4, T, G, K, dtype, cuda_device, seed=T + Hg)
+    ar = torch.arange(T, dtype=torch.int32, device=cuda_device)
+    filled = max(1, T - T // 8)
+    kpos = torch.where(ar < filled, ar, -1)
+    qpos = torch.tensor([[-1], [0], [filled // 2], [filled - 1]], dtype=torch.int32,
+                        device=cuda_device)
+    tol = 2e-5 if dtype == "float32" else 2e-2
+    for kv_pos in (kpos, torch.full_like(kpos, -1)):
+        n = ops.FLASH_ROUTES["decode"]
+        out = ops.flash_attention(q, k, v, qpos, kv_pos, True, None)
+        torch.cuda.synchronize()
+        assert ops.FLASH_ROUTES["decode"] == n + 1
+        assert bool(torch.isfinite(out).all())
+        want = ref.flash_attention_ref(q, k, v, qpos, kv_pos, True, None)
+        torch.testing.assert_close(out.float(), want.float(), atol=tol, rtol=tol)
+    # no key visible anywhere: every row is the mean of v over all T keys
+    mean_v = v.float().mean(1).repeat_interleave(Hg, dim=1)[:, None]
+    torch.testing.assert_close(out.float(), mean_v, atol=tol, rtol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("G", [8, 32])
+def test_flash_decode_route_window_ring_buffer(cuda_device, G, dtype):
+    """The decode route with a sliding window over a ring buffer, where
+    slot t holds position t + W * wraps: kv_pos is not monotone in t."""
+    B, W, H, K, window = 3, 256, 32, 128, 96
+    q = torch.randn(B, 1, H, K, generator=torch.Generator(device=cuda_device).manual_seed(3),
+                    device=cuda_device).to(_TDT[dtype])
+    k, v = _kv(B, W, G, K, dtype, cuda_device, seed=4)
+    qpos = torch.tensor([[300], [511], [40]], dtype=torch.int32, device=cuda_device)
+    slots = torch.arange(W, dtype=torch.int32, device=cuda_device)
+    kpos = torch.where(slots <= 300 % W, slots + W, slots)  # positions 256..300, then 45..255
+    for kv_pos in (kpos, slots):
+        out = ops.flash_attention(q, k, v, qpos, kv_pos, True, window)
+        want = ref.flash_attention_ref(q, k, v, qpos, kv_pos, True, window)
+        tol = 2e-5 if dtype == "float32" else 2e-2
+        torch.testing.assert_close(out.float(), want.float(), atol=tol, rtol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("K", [64, 128])
+@pytest.mark.parametrize("case", ["causal", "chunked", "window", "gqa", "empty_slots", "wide"])
+@pytest.mark.parametrize("Sq", [2, 17, 63, 65, 200])
+def test_flash_mma_prefill_route_matches_plain(cuda_device, Sq, case, K):
+    """The bf16 tensor-core prefill route at lengths that are no multiple
+    of its 64-row and 64-key tiles: plain causal; chunked (T > Sq: the
+    queries are the last Sq of T positions); a window; GQA; a cache with
+    -1 slots in the middle and at the end.  These grids are small enough
+    for the kernel to split each key tile between two warps; "wide" (160
+    or more blocks, chunked) takes its four-warp form."""
+    B, H, G, T, window = 2, 8, 8, Sq, None
+    if case == "wide":
+        B, H, G, T = 5, 32, 32, Sq + 33
+    elif case == "chunked":
+        T = Sq + 77
+    elif case == "window":
+        window = 24
+    elif case == "gqa":
+        G = 2
+    elif case == "empty_slots":
+        T = Sq + 40
+    gen = torch.Generator(device=cuda_device).manual_seed(Sq)
+    q = torch.randn(B, Sq, H, K, generator=gen, device=cuda_device).bfloat16()
+    k, v = _kv(B, T, G, K, "bfloat16", cuda_device, seed=Sq + 1)
+    qpos = torch.arange(T - Sq, T, dtype=torch.int32, device=cuda_device)
+    kpos = torch.arange(T, dtype=torch.int32, device=cuda_device)
+    if case == "empty_slots":
+        kpos[T // 3 : T // 3 + 5] = -1
+        kpos[-7:] = -1
+    n = ops.FLASH_ROUTES["mma_prefill"]
+    out = ops.flash_attention(q, k, v, qpos, kpos, True, window)
+    torch.cuda.synchronize()
+    assert ops.FLASH_ROUTES["mma_prefill"] == n + 1
+    want = ref.flash_attention_ref(q, k, v, qpos, kpos, True, window)
+    assert bool(torch.isfinite(out).all())
+    torch.testing.assert_close(out.float(), want.float(), atol=2e-2, rtol=2e-2)
+
+
+@pytest.mark.cuda
+def test_flash_mma_prefill_rows_without_keys(cuda_device):
+    """Prefill rows that precede every key (q_pos < 0 or below the first
+    written position) average v over all T keys, never NaN; per-row q_pos."""
+    B, Sq, T, H, G, K = 2, 70, 100, 4, 2, 128
+    gen = torch.Generator(device=cuda_device).manual_seed(9)
+    q = torch.randn(B, Sq, H, K, generator=gen, device=cuda_device).bfloat16()
+    k, v = _kv(B, T, G, K, "bfloat16", cuda_device, seed=10)
+    kpos = torch.arange(T, dtype=torch.int32, device=cuda_device) + 20
+    qpos = torch.stack([torch.arange(Sq, dtype=torch.int32, device=cuda_device) - 5,
+                        torch.arange(Sq, dtype=torch.int32, device=cuda_device) + 30])
+    out = ops.flash_attention(q, k, v, qpos, kpos, True, None)
+    want = ref.flash_attention_ref(q, k, v, qpos, kpos, True, None)
+    assert bool(torch.isfinite(out).all())
+    torch.testing.assert_close(out.float(), want.float(), atol=2e-2, rtol=2e-2)
+
+
+@pytest.mark.cuda
+def test_flash_routes_by_shape_and_dtype(cuda_device):
+    """Each call runs the kernel ``_flash_route`` names, once."""
+    for Sq, dtype, route in ((1, "float32", "decode"), (1, "bfloat16", "decode"),
+                             (9, "bfloat16", "mma_prefill"), (9, "float32", "fma")):
+        q = torch.randn(1, Sq, 4, 64, device=cuda_device).to(_TDT[dtype])
+        k, v = _kv(1, 16, 4, 64, dtype, cuda_device, seed=0)
+        pos = torch.arange(16 - Sq, 16, dtype=torch.int32, device=cuda_device)
+        before = dict(ops.FLASH_ROUTES)
+        ops.flash_attention(q, k, v, pos, torch.arange(16, dtype=torch.int32, device=cuda_device))
+        after = dict(ops.FLASH_ROUTES)
+        assert {r: after[r] - before[r] for r in after} == {
+            r: int(r == route) for r in after}, (Sq, dtype)
+
+
 def _ssd_inputs(B, S, H, P, N, dtype, device, seed=0):
     gen = torch.Generator(device=device).manual_seed(seed)
     x = torch.randn(B, S, H, P, generator=gen, device=device).to(_TDT[dtype])
