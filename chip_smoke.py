@@ -10,7 +10,9 @@ Phases (any failure exits non-zero):
   3. kernels  — each kernel (RMSNorm, flash attention, SSD scan) against its
                 plain PyTorch version on the card, at the main paths'
                 shapes, with times (kernel, plain, one PyTorch library call
-                as a yardstick where one exists) and the bound.
+                as a yardstick where one exists) and the bound; the timer's
+                floor (the smallest RMSNorm launch); SSD scans must give the
+                same bits twice.
   4. serve    — main path 1: full-width, 30-layer deepseek-7b in bf16 from
                 a seeded generator; ServeEngine(max_len=512, batch_size=4)
                 serves 6 requests of 16 new tokens; every forward pass must
@@ -26,11 +28,18 @@ Phases (any failure exits non-zero):
   7. ssm      — main path 2: full-width, 48-layer mamba2-370m in bf16;
                 ServeEngine(max_len=512, batch_size=4) serves 6 requests
                 (prompts of 1 to 300 tokens) of 16 new tokens; every pass
-                launches 97 RMSNorm kernels, every prefill 48 SSD scans and
-                no decode step any.  Then its prefill/decode consistency, a
-                small SSM model on the card against the CPU, and a profiled
-                decode step.
+                launches 97 RMSNorm kernels, every prefill 48 SSD scans (all
+                on the tensor-core route, mma) and no decode step any.
+                Then its prefill/decode consistency, a small SSM model on
+                the card against the CPU, a profiled decode step, and a
+                profiled prefill of the 300-token prompt (device time by
+                kernel, the SSD scan's share).
 Then one line {"kernels": [...]} and, last, {"ok": true, "device": {...}}.
+
+    python3 chip_smoke.py --only rmsnorm,ssd,prefill_profile --src DIR
+
+runs phases 1-3 for the named kernels (and the profiled prefill) on the
+port in DIR/src, then stops: two trees' kernels timed in one chip call.
 
 Imports nothing of JAX or of the JAX package.
 """
@@ -114,29 +123,40 @@ def rmsnorm_cases(torch, ops, ref, timer, dev):
 
     out = []
     gen = torch.Generator(device=dev).manual_seed(1)
-    D = 4096
-    for dtype in ("bfloat16", "float32"):
+    cases = [  # dtype, rows, D
+        # one row of qk-norm width: the timer's floor (a launch with the L2 cold)
+        ("bfloat16", 1, 128),
+        # deepseek-7b: a decode step's rows, a 37-token prompt, a long prefill
+        ("bfloat16", 8, 4096), ("bfloat16", 37, 4096), ("bfloat16", 4096, 4096),
+        ("float32", 8, 4096), ("float32", 37, 4096), ("float32", 4096, 4096),
+        # mamba2-370m: d_model 1024 and the gated norm over d_inner 2048, at a
+        # decode step of the serve batch (4 rows) and the longest prompt (300)
+        ("bfloat16", 4, 1024), ("bfloat16", 300, 1024),
+        ("bfloat16", 4, 2048), ("bfloat16", 300, 2048),
+    ]
+    for dtype, rows, D in cases:
         tdt = getattr(torch, dtype)
-        for rows in (8, 37, 4096):
-            x = torch.randn(rows, D, generator=gen, device=dev).to(tdt)
-            scale = torch.randn(D, generator=gen, device=dev)
-            got = ops.rmsnorm(x, scale)
-            want = ref.rmsnorm_ref(x, scale)
-            torch.cuda.synchronize()
-            tol = 1e-5 if dtype == "float32" else 2e-2
-            err = (got.float() - want.float()).abs().max().item()
-            ok = torch.allclose(got.float(), want.float(), atol=tol, rtol=tol)
-            w = scale.to(tdt)
-            esize = x.element_size()
-            b_ms, b_by = bound(rows * D * 2 * esize + 4 * D, 4 * rows * D, "float32")
-            out.append(dict(
-                kernel="rmsnorm", case=f"{dtype} rows={rows} D={D}",
-                max_abs_err=err, tol=tol, ok=ok,
-                ms=timer.ms(lambda: ops.rmsnorm(x, scale)),
-                plain_ms=timer.ms(lambda: ref.rmsnorm_ref(x, scale)),
-                library_ms=timer.ms(lambda: F.rms_norm(x, (D,), w, 1e-6)),
-                bound_ms=b_ms, bound_by=b_by,
-            ))
+        x = torch.randn(rows, D, generator=gen, device=dev).to(tdt)
+        scale = torch.randn(D, generator=gen, device=dev)
+        got = ops.rmsnorm(x, scale)
+        want = ref.rmsnorm_ref(x, scale)
+        torch.cuda.synchronize()
+        tol = 1e-5 if dtype == "float32" else 2e-2
+        err = (got.float() - want.float()).abs().max().item()
+        ok = torch.allclose(got.float(), want.float(), atol=tol, rtol=tol)
+        w = scale.to(tdt)
+        esize = x.element_size()
+        b_ms, b_by = bound(rows * D * 2 * esize + 4 * D, 4 * rows * D, "float32")
+        out.append(dict(
+            kernel="rmsnorm", case=f"{dtype} rows={rows} D={D}",
+            max_abs_err=err, tol=tol, ok=ok,
+            ms=timer.ms(lambda: ops.rmsnorm(x, scale)),
+            plain_ms=timer.ms(lambda: ref.rmsnorm_ref(x, scale)),
+            library_ms=timer.ms(lambda: F.rms_norm(x, (D,), w, 1e-6)),
+            bound_ms=b_ms, bound_by=b_by,
+        ))
+    log(f"timer floor: {out[0]['ms']!r} ms, the median time of the smallest RMSNorm launch "
+        f"({out[0]['case']}, bound {out[0]['bound_ms']!r} ms)")
     return out
 
 
@@ -266,11 +286,16 @@ def ssd_cases(torch, ops, ref, timer, dev):
         def kernel():
             return ops.ssd_scan(x, dt, A, Bm, Cm, Q, init_state=init, out_dtype=ydt)
 
+        route = ops._ssd_route(tdt, P, N, Q, ops._ssd_aligned(x, Bm, Cm))
+        before = ops.SSD_ROUTES[route]
         y, s = kernel()
+        y2, s2 = kernel()
         torch.cuda.synchronize()
+        assert ops.SSD_ROUTES[route] == before + 2, (name, route)
         tol = 2e-4 if ydtype == "float32" else 5e-2
         err = max((y.float() - y_want).abs().max().item(), (s - s_want).abs().max().item())
         ok = (bool(torch.isfinite(y).all()) and y.dtype == ydt
+              and torch.equal(y, y2) and torch.equal(s, s2)  # the same bits every call
               and torch.allclose(y.float(), y_want, atol=tol, rtol=tol)
               and torch.allclose(s, s_want, atol=2e-4, rtol=2e-4)
               and torch.allclose(s, s_seq, atol=2e-4, rtol=2e-4))
@@ -283,7 +308,7 @@ def ssd_cases(torch, ops, ref, timer, dev):
             kernel="ssd_scan",
             case=f"{name} {dtype} B={B} S={S_run} H={H} P={P} N={N} chunk={Q} y={ydtype}"
                  + (" init_state" if init is not None else ""),
-            max_abs_err=err, tol=tol, ok=ok,
+            route=route, max_abs_err=err, tol=tol, ok=ok,
             ms=timer.ms(kernel),
             plain_ms=timer.ms(lambda: ref.ssd_chunked_ref(x, dt, A, Bm, Cm, Q, init)),
             library_ms=None,  # no single PyTorch call computes the SSD scan
@@ -297,15 +322,16 @@ def ssd_cases(torch, ops, ref, timer, dev):
 # --------------------------------------------------------------------------
 
 
-def serve(torch, np, cfg, params, ops, lengths, per_pass, flash_route=None):
+def serve(torch, np, cfg, params, ops, lengths, per_pass, routes):
     """Serve len(lengths) requests of 16 new tokens through ServeEngine at
     batch 4, with the launch counters set to 0 just before and read just
     after.  ``per_pass[kernel] = (per prefill, per decode step)``: the
-    launches each forward pass must make; ``flash_route[kind]``: the
-    flash-attention route all of a prefill's or decode step's attention
-    launches must take.  Returns (launches, flash launches by route)."""
+    launches each forward pass must make; ``routes[kernel][kind]``: the
+    route all of a prefill's or decode step's launches of that kernel must
+    take.  Returns (launches, launches by route of each routed kernel)."""
     from repro_torch.serve.engine import Request, ServeEngine
 
+    by_route = {"flash_attention": ops.FLASH_ROUTES, "ssd_scan": ops.SSD_ROUTES}
     engine = ServeEngine(cfg, params, max_len=512, batch_size=4)
     finite = []
     to_host = engine._logits_to_host
@@ -318,15 +344,20 @@ def serve(torch, np, cfg, params, ops, lengths, per_pass, flash_route=None):
     engine._logits_to_host = checked
     engine.generate([Request(99, [1, 2, 3, 4, 5, 6, 7, 8], max_new_tokens=2)])  # warm-up
 
-    passes = []  # (kind, launches of that pass)
+    passes = []  # (kind, launches of that pass, its launches by route)
     model = engine.model
+
+    def snapshot():
+        return dict(ops.LAUNCHES), {k: dict(v) for k, v in by_route.items()}
 
     def counted(kind, fn):
         def call(*args, **kwargs):
-            before, routes = dict(ops.LAUNCHES), dict(ops.FLASH_ROUTES)
+            before, before_r = snapshot()
             out = fn(*args, **kwargs)
-            passes.append((kind, {k: ops.LAUNCHES[k] - before[k] for k in before},
-                           {r: ops.FLASH_ROUTES[r] - routes[r] for r in routes}))
+            after, after_r = snapshot()
+            passes.append((kind, {k: after[k] - before[k] for k in before},
+                           {k: {r: after_r[k][r] - before_r[k][r] for r in after_r[k]}
+                            for k in after_r}))
             return out
         return call
 
@@ -344,20 +375,22 @@ def serve(torch, np, cfg, params, ops, lengths, per_pass, flash_route=None):
     engine.generate(reqs)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches, routes = dict(ops.LAUNCHES), dict(ops.FLASH_ROUTES)
+    launches = dict(ops.LAUNCHES)
+    route_counts = {k: dict(v) for k, v in by_route.items()}
 
     n_prefill = len(engine.call_seconds["prefill"])
     n_decode = len(engine.call_seconds["decode"])
     assert all(r.done and len(r.generated) == 16 for r in reqs), "a request did not finish"
     assert all(finite), "non-finite logits"
     assert len(passes) == n_prefill + n_decode, (len(passes), n_prefill, n_decode)
-    for kind, counts, by_route in passes:
+    for kind, counts, pass_routes in passes:
         want = {k: v[0 if kind == "prefill" else 1] for k, v in per_pass.items()}
         assert counts == want, (kind, counts, want)
-        want_routes = {r: 0 for r in by_route}
-        if flash_route:
-            want_routes[flash_route[kind]] = want["flash_attention"]
-        assert by_route == want_routes, (kind, by_route, want_routes)
+        for kernel, got in pass_routes.items():
+            want_routes = {r: 0 for r in got}
+            if kernel in routes:
+                want_routes[routes[kernel][kind]] = want[kernel]
+            assert got == want_routes, (kind, kernel, got, want_routes)
     pre = sorted(engine.call_seconds["prefill"])
     dec = sorted(engine.call_seconds["decode"])
     n_tok = sum(len(r.generated) for r in reqs)
@@ -368,8 +401,8 @@ def serve(torch, np, cfg, params, ops, lengths, per_pass, flash_route=None):
         f"{dec[len(dec) // 2] * 1e3:.3f} (min {dec[0] * 1e3:.3f}, max {dec[-1] * 1e3:.3f}); "
         f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     log(f"serve {cfg.name}: launches {launches} over {n_prefill} prefills + {n_decode} decode "
-        f"steps; per pass (prefill, decode) {per_pass}; flash by route {routes}")
-    return launches, routes
+        f"steps; per pass (prefill, decode) {per_pass}; by route {route_counts}")
+    return launches, route_counts
 
 
 def rel_err(a, b) -> float:
@@ -571,6 +604,42 @@ def profile_decode(torch, cfg, params, batch: int = 4, steps: int = 5):
             f"{e.count // steps:5d}/step  {e.key[:90]}")
 
 
+def profile_prefill(torch, np, cfg, params, S: int = 300):
+    """Device time by kernel of one prefill of an S-token prompt (the
+    mamba2-370m serve run's longest), from torch.profiler, and the SSD
+    scan's share of it."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.models import Model
+
+    model = Model(cfg)
+    dev = model.device
+    tok = torch.from_numpy(
+        np.random.default_rng(9).integers(0, cfg.vocab_size, (1, S)).astype(np.int32)).to(dev)
+    model.prefill(params, {"tokens": tok}, model.init_cache(1, 512))  # warm-up
+    cache = model.init_cache(1, 512)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        model.prefill(params, {"tokens": tok}, cache)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    kernels = [e for e in prof.key_averages() if e.device_type.name == "CUDA"]
+    busy_us = sum(e.self_device_time_total for e in kernels)
+    if not busy_us:
+        log(f"profile prefill {cfg.name}: the profiler recorded no device time; not measured")
+        return
+    ssd_us = sum(e.self_device_time_total for e in kernels if "ssd" in e.key)
+    log(f"profile prefill {cfg.name}: S={S}, wall {wall_ms:.3f} ms (profiled), device busy "
+        f"{busy_us / 1e3:.4f} ms = {busy_us / 1e3 / wall_ms:.4f} of wall, "
+        f"{sum(e.count for e in kernels)} kernels; SSD scan {ssd_us / 1e3:.4f} ms = "
+        f"{ssd_us / busy_us:.4f} of device time")
+    ranked = sorted(kernels, key=lambda e: -e.self_device_time_total)
+    for e in ranked[:10] + [e for e in ranked[10:] if "ssd" in e.key]:
+        log(f"profile prefill {cfg.name}:   {e.self_device_time_total / 1e3:8.4f} ms "
+            f"{e.count:5d}x  {e.key[:90]}")
+
+
 def calibrate_phase(cfg, params, card):
     from repro_torch.serve.engine import ServeEngine
     from repro_torch.serve.latency import calibrate
@@ -587,13 +656,32 @@ def calibrate_phase(cfg, params, card):
 # --------------------------------------------------------------------------
 
 
-def main() -> int:
+def parse_args(argv):
+    import argparse
+
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--only", default="",
+                    help="comma list of rmsnorm, flash, ssd, prefill_profile: run the device "
+                         "and build phases and these, then stop (to time another tree's "
+                         "kernels beside this one's in one chip call)")
+    ap.add_argument("--src", type=Path, default=ROOT,
+                    help="root of the checkout whose src/repro_torch is run (default: this one)")
+    args = ap.parse_args(argv)
+    args.only = [p for p in args.only.split(",") if p]
+    unknown = set(args.only) - {"rmsnorm", "flash", "ssd", "prefill_profile"}
+    if unknown:
+        ap.error(f"unknown phases {sorted(unknown)}")
+    return args
+
+
+def main(argv=None) -> int:
     import torch
 
+    args = parse_args(sys.argv[1:] if argv is None else argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the GPU only", file=sys.stderr)
         return 1
-    sys.path.insert(0, str(ROOT / "src"))
+    sys.path.insert(0, str(args.src.resolve() / "src"))
     import numpy as np
 
     from repro_torch.configs import get_config
@@ -624,23 +712,32 @@ def main() -> int:
 
     # 3. kernels against their plain versions
     timer = Timer(torch, dev)
-    results = (rmsnorm_cases(torch, ops, ref, timer, dev) + flash_cases(torch, ops, ref, timer, dev)
-               + ssd_cases(torch, ops, ref, timer, dev))
+    results = []
+    for name, cases in (("rmsnorm", rmsnorm_cases), ("flash", flash_cases), ("ssd", ssd_cases)):
+        if not args.only or name in args.only:
+            results += cases(torch, ops, ref, timer, dev)
     for r in results:
         log("case: " + json.dumps(r))
     bad = [r["case"] for r in results if not r["ok"]]
     assert not bad, f"kernels disagree with their plain versions: {bad}"
+    if args.only:
+        if "prefill_profile" in args.only:
+            cfg = get_config("mamba2-370m")
+            profile_prefill(torch, np, cfg, init_params(torch, Model, cfg, dev))
+        log(f"only {args.only} from {args.src}: done in {time.perf_counter() - t_start:.1f} s")
+        return 0
 
     # 4. serve deepseek-7b at full width (main path 1)
     cfg = get_config("deepseek-7b")
     params = init_params(torch, Model, cfg, dev)
     n = cfg.n_layers
-    launches, flash_routes = serve(
+    launches, route_counts = serve(
         torch, np, cfg, params, ops, lengths=[200, 5, 83, 161, 44, 122],
         per_pass={"rmsnorm": (2 * n + 1,) * 2, "flash_attention": (n, n), "ssd_scan": (0, 0)},
-        flash_route={"prefill": "mma_prefill", "decode": "decode"},
+        routes={"flash_attention": {"prefill": "mma_prefill", "decode": "decode"}},
     )
     path_launches = {cfg.name: launches}
+    flash_routes = route_counts["flash_attention"]
 
     # 5. checks
     prefill_decode_consistency(torch, np, cfg, params)
@@ -658,13 +755,17 @@ def main() -> int:
     n = cfg.n_layers
     # per pass: ln1 and the gated norm in every layer plus the final norm
     # (97); one SSD scan per layer on prefill, none on decode
-    path_launches[cfg.name], _ = serve(
+    # every scan on the tensor-core route (bf16, aligned xBC views)
+    path_launches[cfg.name], route_counts = serve(
         torch, np, cfg, params, ops, lengths=[1, 2, 5, 83, 200, 300],
         per_pass={"rmsnorm": (2 * n + 1,) * 2, "flash_attention": (0, 0), "ssd_scan": (n, 0)},
+        routes={"ssd_scan": {"prefill": "mma", "decode": "mma"}},
     )
+    ssd_routes = route_counts["ssd_scan"]
     ssm_prefill_decode_consistency(torch, np, cfg, params)
     small_ssm_against_cpu(torch, np, ops)
     profile_decode(torch, cfg, params)
+    profile_prefill(torch, np, cfg, params)
 
     # one line per kernel, at its main-path shape; launches summed over the
     # two main paths' serve runs
@@ -685,6 +786,7 @@ def main() -> int:
             name=name, route="cuda", source=source, replaces=replaces,
             launches=sum(by_path.values()), launches_by_path=by_path,
             **({"launches_by_flash_route": flash_routes} if name == "flash_attention" else {}),
+            **({"launches_by_ssd_route": ssd_routes} if name == "ssd_scan" else {}),
             max_abs_err=max(r["max_abs_err"] for r in mine),
             ms=rep["ms"], plain_ms=rep["plain_ms"], bound_ms=rep["bound_ms"],
             bound_by=rep["bound_by"], library_ms=rep["library_ms"], case=rep["case"],

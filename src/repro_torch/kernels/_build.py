@@ -34,9 +34,9 @@ SIGNATURES = {
     "flash_attention_fwd": (_P, _P, _P, _P, _I64, _P, _P) + (_I,) * 11 + (_P,),
     # x, x_bstride, x_sstride, dt, A, Bm, b_bstride, b_sstride, Cm,
     # c_bstride, c_sstride, init_state, y, state, B, S, H, P, N, chunk,
-    # dtype, out_dtype, stream
+    # dtype, out_dtype, route, ws, stream
     "ssd_scan_fwd": (_P, _I64, _I64, _P, _P, _P, _I64, _I64, _P, _I64, _I64,
-                     _P, _P, _P) + (_I,) * 8 + (_P,),
+                     _P, _P, _P) + (_I,) * 9 + (_P, _P),
 }
 
 _lib: Optional[ctypes.CDLL] = None

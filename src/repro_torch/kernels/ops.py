@@ -7,9 +7,9 @@ from the kernel to the plain version.
 
 ``LAUNCHES`` counts, per wrapper, the kernel launches it has made; it is
 incremented right after a launch succeeds and nowhere else, so a run can
-show that its main path went through the kernels.  ``FLASH_ROUTES``
-splits the flash-attention launches by the kernel each call ran
-(``_flash_route``).
+show that its main path went through the kernels.  ``FLASH_ROUTES`` and
+``SSD_ROUTES`` split the flash-attention and SSD-scan launches by the
+kernel each call ran (``_flash_route``, ``_ssd_route``).
 
 The JAX package's ``custom_vjp`` backward of flash attention
 (``repro/kernels/ops.py``) and any backward of the SSD scan wait for the
@@ -26,14 +26,17 @@ from . import _build, ref
 LAUNCHES: Dict[str, int] = {"rmsnorm": 0, "flash_attention": 0, "ssd_scan": 0}
 FLASH_ROUTES: Dict[str, int] = {"decode": 0, "mma_prefill": 0, "fma": 0}
 _FLASH_ROUTE_CODES = {"fma": 0, "decode": 1, "mma_prefill": 2}  # csrc/flash_attention.cu
+SSD_ROUTES: Dict[str, int] = {"mma": 0, "fma": 0}
+_SSD_ROUTE_CODES = {"fma": 0, "mma": 1}  # csrc/ssd_scan.cu
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_DIMS = (64, 128)
 _SSD_SIZES = (16, 32, 64, 128)  # the SSD kernel's P, N and chunk
+_SSD_MMA_SIZES = (64, 128)  # N and chunk of the SSD scan's tensor-core route
 
 
 def reset_launches() -> None:
-    for counts in (LAUNCHES, FLASH_ROUTES):
+    for counts in (LAUNCHES, FLASH_ROUTES, SSD_ROUTES):
         for name in counts:
             counts[name] = 0
 
@@ -186,6 +189,42 @@ def flash_attention(
     return out
 
 
+def _ssd_aligned(*tensors: torch.Tensor) -> bool:
+    """True when each tensor's base is 16-byte aligned and its batch and
+    sequence strides are multiples of 8 elements, as the SSD scan's
+    tensor-core route copies rows in 16-byte pieces."""
+    return all(
+        t.data_ptr() % 16 == 0 and t.stride(0) % 8 == 0 and t.stride(1) % 8 == 0
+        for t in tensors
+    )
+
+
+def _ssd_route(dtype: torch.dtype, P: int, N: int, chunk: int, aligned: bool) -> str:
+    """The SSD-scan kernel a call on the card runs: ``mma`` (tensor cores,
+    chunks in parallel) for bfloat16 x, B and C with chunk and N each 64 or
+    128, P a multiple of 32 and aligned rows (``_ssd_aligned``); ``fma``
+    (fp32 FMA, chunks in sequence) for everything else, float32 included,
+    whose tolerance the bf16 operands of the tensor cores would not hold
+    without splitting every input too."""
+    if (dtype == torch.bfloat16 and chunk in _SSD_MMA_SIZES and N in _SSD_MMA_SIZES
+            and P % 32 == 0 and aligned):
+        return "mma"
+    return "fma"
+
+
+def _ssd_workspace_bytes(B: int, S: int, H: int, P: int, N: int, chunk: int) -> int:
+    """Scratch of the ``mma`` route (csrc/ssd_scan.cu, ``mma_header_bytes``):
+    per block of 32 columns of P, two flags and a decay for every chunk
+    but the last and a flag for every group of 8 chunks but the last, one
+    ticket, all rounded up to 16 bytes; then the fp32 states [B, *, H, N, P]
+    of every chunk but the last and of every group but the last."""
+    nc = -(-S // chunk)
+    ng = -(-nc // 8)
+    blocks = B * H * (P // 32)
+    header = -(-4 * (2 * (nc - 1) * blocks + (ng - 1) * blocks + 1) // 16) * 16
+    return header + 4 * B * H * N * P * (nc - 1 + ng - 1)
+
+
 def ssd_scan(
     x: torch.Tensor,  # [B,S,H,P]
     dt: torch.Tensor,  # [B,S,H] float32, softplus applied
@@ -204,7 +243,8 @@ def ssd_scan(
     last axis (and x's head axis) must be dense.  P, N and chunk are each
     one of 16, 32, 64, 128; S >= 1, and S need not be a chunk multiple.
     On a CPU tensor this runs ``ref.ssd_chunked_ref``, the chunked
-    algorithm of the JAX model."""
+    algorithm of the JAX model; on the card, one launch of the kernel
+    ``_ssd_route`` names."""
     Bsz, S, H, P = x.shape
     N = Bm.shape[-1]
     out_dtype = out_dtype or x.dtype
@@ -251,15 +291,22 @@ def ssd_scan(
         raise ValueError("ssd_scan: dt and A must be contiguous")
     if init_state is not None and not init_state.is_contiguous():
         raise ValueError("ssd_scan: init_state must be contiguous")
+    route = _ssd_route(x.dtype, P, N, chunk, _ssd_aligned(x, Bm, Cm))
     y = torch.empty((Bsz, S, H, P), dtype=out_dtype, device=x.device)
     state = torch.empty((Bsz, H, N, P), dtype=torch.float32, device=x.device)
+    ws = None
+    if route == "mma":
+        ws = torch.empty(_ssd_workspace_bytes(Bsz, S, H, P, N, chunk),
+                         dtype=torch.uint8, device=x.device)
     err = _build.load().ssd_scan_fwd(
         x.data_ptr(), x.stride(0), x.stride(1), dt.data_ptr(), A.data_ptr(),
         Bm.data_ptr(), Bm.stride(0), Bm.stride(1),
         Cm.data_ptr(), Cm.stride(0), Cm.stride(1),
         init_state.data_ptr() if init_state is not None else None,
         y.data_ptr(), state.data_ptr(), Bsz, S, H, P, N, chunk, code, out_code,
+        _SSD_ROUTE_CODES[route], ws.data_ptr() if ws is not None else None,
         _stream(x),
     )
     _check_launch("ssd_scan", err)
+    SSD_ROUTES[route] += 1
     return y, state

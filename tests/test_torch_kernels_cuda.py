@@ -22,16 +22,36 @@ def cuda_device():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("rows", [8, 37, 4096])
+@pytest.mark.parametrize("rows", [1, 4, 37, 300, 4096])
+@pytest.mark.parametrize("D", [128, 1000, 1024, 2048, 4096])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-def test_rmsnorm_kernel_matches_plain(cuda_device, rows, dtype):
+def test_rmsnorm_kernel_matches_plain(cuda_device, rows, D, dtype):
+    """The widths the port runs (128, 1024, 2048, 4096) take the row
+    kernel; D = 1000 the general kernel."""
     gen = torch.Generator(device=cuda_device).manual_seed(0)
-    x = torch.randn(rows, 4096, generator=gen, device=cuda_device).to(_TDT[dtype])
-    s = torch.randn(4096, generator=gen, device=cuda_device)
+    x = torch.randn(rows, D, generator=gen, device=cuda_device).to(_TDT[dtype])
+    s = torch.randn(D, generator=gen, device=cuda_device)
     n = ops.LAUNCHES["rmsnorm"]
     out = ops.rmsnorm(x, s)
     torch.cuda.synchronize()
     assert ops.LAUNCHES["rmsnorm"] == n + 1
+    tol = 1e-5 if dtype == "float32" else 2e-2
+    torch.testing.assert_close(out.float(), ref.rmsnorm_ref(x, s).float(), atol=tol, rtol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", [128, 4096])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_rmsnorm_kernel_unaligned_views(cuda_device, D, dtype):
+    """x and scale that start one element past a 16-byte boundary take the
+    general kernel at a width the row kernel is built for."""
+    gen = torch.Generator(device=cuda_device).manual_seed(1)
+    rows = 37
+    x = torch.randn(rows * D + 1, generator=gen, device=cuda_device).to(_TDT[dtype])[1:]
+    x = x.view(rows, D)
+    s = torch.randn(D + 1, generator=gen, device=cuda_device)[1:]
+    assert x.data_ptr() % 16 and s.data_ptr() % 16
+    out = ops.rmsnorm(x, s)
     tol = 1e-5 if dtype == "float32" else 2e-2
     torch.testing.assert_close(out.float(), ref.rmsnorm_ref(x, s).float(), atol=tol, rtol=tol)
 
@@ -258,3 +278,102 @@ def test_ssd_kernel_init_state_and_strided_inputs(cuda_device):
                           init_state=s1, out_dtype=torch.float32)
     torch.testing.assert_close(y2, y_want[:, 150:], atol=2e-4, rtol=2e-4)
     torch.testing.assert_close(s2, s_want, atol=2e-4, rtol=2e-4)
+
+
+def _ssd_mma(args, chunk, **kw):
+    """One call that must take the tensor-core route."""
+    n = ops.SSD_ROUTES["mma"]
+    y, state = ops.ssd_scan(*args, chunk, **kw)
+    torch.cuda.synchronize()
+    assert ops.SSD_ROUTES["mma"] == n + 1
+    return y, state
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ydtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B", [1, 2])
+@pytest.mark.parametrize("S", [1, 2, 5, 127, 128, 129, 300, 512])
+def test_ssd_mma_route_matches_plain(cuda_device, S, B, ydtype):
+    """bf16 x, B, C at the mamba2-370m widths (P 64, N 128, chunk 128) over
+    lengths that are no chunk multiple, one chunk and several; y in fp32
+    (the model's call) or bf16; the same bits from a second call."""
+    args = _ssd_inputs(B, S, 8, 64, 128, "bfloat16", cuda_device, seed=S + B)
+    ydt = _TDT[ydtype]
+    y, state = _ssd_mma(args, 128, out_dtype=ydt)
+    assert y.dtype == ydt and bool(torch.isfinite(y).all())
+    y_want, s_want = ref.ssd_chunked_ref(*args, 128)
+    tol = 2e-4 if ydtype == "float32" else 5e-2
+    torch.testing.assert_close(y.float(), y_want, atol=tol, rtol=tol)
+    torch.testing.assert_close(state, s_want, atol=2e-4, rtol=2e-4)
+    y2, state2 = _ssd_mma(args, 128, out_dtype=ydt)
+    assert torch.equal(y, y2) and torch.equal(state, state2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("P", [32, 64, 128])
+@pytest.mark.parametrize("N", [64, 128])
+@pytest.mark.parametrize("chunk", [64, 128])
+def test_ssd_mma_route_sizes(cuda_device, P, N, chunk):
+    """Every P, N and chunk the tensor-core route takes, over a tail chunk
+    and a batch of 2, fp32 y."""
+    args = _ssd_inputs(2, 200, 3, P, N, "bfloat16", cuda_device, seed=P + N + chunk)
+    y, state = _ssd_mma(args, chunk, out_dtype=torch.float32)
+    y_want, s_want = ref.ssd_chunked_ref(*args, chunk)
+    torch.testing.assert_close(y, y_want, atol=2e-4, rtol=2e-4)
+    torch.testing.assert_close(state, s_want, atol=2e-4, rtol=2e-4)
+    torch.testing.assert_close(state, ref.ssd_scan_ref(*args)[1], atol=2e-4, rtol=2e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("split", [1, 150, 256])
+def test_ssd_mma_route_init_state_and_model_views(cuda_device, split):
+    """Slices of one xBC tensor, as the Mamba block passes them (row stride
+    2304, offsets 0, 2048, 2176), an fp32 y, and the state after `split`
+    tokens carried into the rest."""
+    B, S, H, P, N = 1, 300, 32, 64, 128
+    gen = torch.Generator(device=cuda_device).manual_seed(split)
+    xbc = torch.randn(B, S, H * P + 2 * N, generator=gen, device=cuda_device).bfloat16()
+    x = xbc[..., : H * P].view(B, S, H, P)
+    Bm, Cm = xbc[..., H * P : H * P + N], xbc[..., H * P + N :]
+    dt = torch.rand(B, S, H, generator=gen, device=cuda_device) * 0.099 + 0.001
+    A = -(torch.rand(H, generator=gen, device=cuda_device) * 3.5 + 0.5)
+    y_want, s_want = ref.ssd_chunked_ref(x, dt, A, Bm, Cm, 128)
+    head = (x[:, :split], dt[:, :split], A, Bm[:, :split], Cm[:, :split])
+    _, s1 = _ssd_mma(head, 128)
+    tail = (x[:, split:], dt[:, split:], A, Bm[:, split:], Cm[:, split:])
+    y2, s2 = _ssd_mma(tail, 128, init_state=s1, out_dtype=torch.float32)
+    torch.testing.assert_close(y2, y_want[:, split:], atol=2e-4, rtol=2e-4)
+    torch.testing.assert_close(s2, s_want, atol=2e-4, rtol=2e-4)
+
+
+@pytest.mark.cuda
+def test_ssd_mma_route_large_decay(cuda_device):
+    """|A| dt up to 4 a step: over a chunk the masked cum_i - cum_j (j > i)
+    passes 88, where expf overflows, so the kernel must select before exp;
+    no NaN or inf.  (Far larger decays make cum itself lose digits in fp32:
+    at |A| dt ~ 200 a step the plain chunked and sequential versions
+    already differ by 2e-3.)"""
+    x, dt, A, Bm, Cm = _ssd_inputs(1, 300, 8, 64, 128, "bfloat16", cuda_device, seed=11)
+    A = A * 10
+    assert float((dt[:, :128] * -A).sum(1).max()) > 88  # a masked exp would overflow
+    y, state = _ssd_mma((x, dt, A, Bm, Cm), 128, out_dtype=torch.float32)
+    assert bool(torch.isfinite(y).all()) and bool(torch.isfinite(state).all())
+    y_want, s_want = ref.ssd_chunked_ref(x, dt, A, Bm, Cm, 128)
+    torch.testing.assert_close(y, y_want, atol=2e-4, rtol=2e-4)
+    torch.testing.assert_close(state, s_want, atol=2e-4, rtol=2e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S,chunk", [(1024, 128), (1025, 128), (1100, 64), (2100, 64)])
+def test_ssd_mma_route_across_groups(cuda_device, S, chunk):
+    """More than one group of 8 chunks: the state after each group is
+    carried to the next; with an initial state and the same bits twice."""
+    args = _ssd_inputs(1, S, 4, 64, 128, "bfloat16", cuda_device, seed=S)
+    init = torch.randn(1, 4, 128, 64, generator=torch.Generator(device=cuda_device).manual_seed(1),
+                       device=cuda_device)
+    y, state = _ssd_mma(args, chunk, init_state=init, out_dtype=torch.float32)
+    y_want, s_want = ref.ssd_chunked_ref(*args, chunk, init_state=init)
+    torch.testing.assert_close(y, y_want, atol=2e-4, rtol=2e-4)
+    torch.testing.assert_close(state, s_want, atol=2e-4, rtol=2e-4)
+    y2, state2 = _ssd_mma(args, chunk, init_state=init, out_dtype=torch.float32)
+    assert torch.equal(y, y2) and torch.equal(state, state2)

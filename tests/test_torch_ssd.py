@@ -158,3 +158,60 @@ def test_wrapper_rejects_what_the_kernel_does_not_take():
     n = ops.LAUNCHES["ssd_scan"]
     ops.ssd_scan(x, dt, A, Bm, Cm, 16)
     assert ops.LAUNCHES["ssd_scan"] == n  # the plain version launches nothing
+
+
+# --------------------------------------------------------------------------
+# the card's routes: which kernel a call would run (decided on the host)
+# --------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize(
+    "dtype,P,N,chunk,aligned,route",
+    [(torch.bfloat16, 64, 128, 128, True, "mma"),  # the mamba2-370m prefill
+     (torch.bfloat16, 32, 64, 64, True, "mma"),
+     (torch.bfloat16, 128, 64, 128, True, "mma"),
+     (torch.float32, 64, 128, 128, True, "fma"),  # fp32: the fp32 kernel
+     (torch.bfloat16, 64, 128, 128, False, "fma"),  # rows not 16-byte aligned
+     (torch.bfloat16, 16, 128, 128, True, "fma"),  # P not a multiple of 32
+     (torch.bfloat16, 64, 32, 128, True, "fma"),  # N below 64
+     (torch.bfloat16, 64, 128, 16, True, "fma"),  # chunk below 64
+     (torch.bfloat16, 16, 16, 16, True, "fma")],  # the reduced config's sizes
+)
+def test_ssd_route_by_dtype_sizes_and_alignment(dtype, P, N, chunk, aligned, route):
+    """bfloat16 with chunk and N in {64, 128}, P a multiple of 32 and
+    aligned rows takes the tensor-core kernel; everything else the fp32
+    FMA kernel.  Every name has a code in the C entry point."""
+    assert ops._ssd_route(dtype, P, N, chunk, aligned) == route
+    assert set(ops.SSD_ROUTES) == set(ops._SSD_ROUTE_CODES)
+
+
+def test_ssd_alignment_of_the_model_views():
+    """The Mamba block's xBC views (row stride 2304, offsets 0, 2048 and
+    2176 elements) are aligned; a view 4 elements in, or a row stride that
+    is no multiple of 8, is not."""
+    H, P, N = 32, 64, 128
+    xbc = torch.zeros(2, 5, H * P + 2 * N, dtype=torch.bfloat16)
+    x = xbc[..., : H * P].view(2, 5, H, P)
+    Bm, Cm = xbc[..., H * P : H * P + N], xbc[..., H * P + N :]
+    assert ops._ssd_aligned(x, Bm, Cm)
+    assert not ops._ssd_aligned(x, xbc[..., 4 : 4 + N], Cm)
+    odd = torch.zeros(2, 5, N + 4, dtype=torch.bfloat16)[..., :N]
+    assert not ops._ssd_aligned(x, odd, Cm)
+
+
+def test_ssd_workspace_bytes():
+    """Two flags and a decay per (chunk but the last, block of 32 columns),
+    a flag per (group of 8 chunks but the last, block) and a ticket, to 16
+    bytes; then the fp32 states of every chunk and group but the last."""
+    assert ops._ssd_workspace_bytes(1, 512, 32, 64, 128, 128) == 1552 + 4 * 3 * 32 * 128 * 64
+    assert ops._ssd_workspace_bytes(1, 128, 32, 64, 128, 128) == 16  # one chunk: no state
+    assert ops._ssd_workspace_bytes(2, 129, 4, 32, 64, 64) == 144 + 4 * 2 * 2 * 4 * 64 * 32
+    # 9 chunks: two groups, so one group state too
+    assert ops._ssd_workspace_bytes(1, 1100, 2, 64, 64, 128) == 288 + 4 * 9 * 2 * 64 * 64
+
+
+def test_cpu_ssd_counts_no_route_and_reset_clears_routes():
+    ops.SSD_ROUTES["mma"] += 2
+    ops.reset_launches()
+    ops.ssd_scan(*_torch(_mk(1, 40, 2, 32, 64), "bfloat16"), 64)
+    assert ops.SSD_ROUTES == {"mma": 0, "fma": 0}
