@@ -9,10 +9,10 @@ Phases (any failure exits non-zero):
   2. build    — compiles the port's CUDA kernels from src/repro_torch/csrc.
   3. kernels  — each kernel (RMSNorm, flash attention, SSD scan) against its
                 plain PyTorch version on the card, at the main paths'
-                shapes, with times (kernel, plain, one PyTorch library call
-                as a yardstick where one exists) and the bound; the timer's
-                floor (the smallest RMSNorm launch); SSD scans must give the
-                same bits twice.
+                shapes (serving and training), with times (kernel, plain,
+                one PyTorch library call as a yardstick where one exists)
+                and the bound; the timer's floor (the smallest RMSNorm
+                launch); SSD scans must give the same bits twice.
   4. serve    — main path 1: full-width, 30-layer deepseek-7b in bf16 from
                 a seeded generator; ServeEngine(max_len=512, batch_size=4)
                 serves 6 requests of 16 new tokens; every forward pass must
@@ -34,6 +34,17 @@ Phases (any failure exits non-zero):
                 the card against the CPU, a profiled decode step, and a
                 profiled prefill of the 300-token prompt (device time by
                 kernel, the SSD scan's share).
+  8. train    — main path 3: deepseek-7b at full width, depth cut to 8
+                layers (fp32 AdamW moments for 30 would not fit), bf16,
+                3 steps of make_train_step at batch 4 x seq 512; every step
+                launches 33 RMSNorm and 16 attention kernels (forward and
+                the remat recompute), all on mma_prefill; a profiled step.
+                Main path 4: mamba2-370m at full width and depth through
+                train_loop, 4 steps at batch 8 x seq 512; every step 193
+                RMSNorm and 96 SSD scans, all on mma.  Finite losses and
+                grad norms, the step-0 loss near its expected value; small
+                models trained on the card against the CPU; a failed and
+                resumed train_loop against a straight run.
 Then one line {"kernels": [...]} and, last, {"ok": true, "device": {...}}.
 
     python3 chip_smoke.py --only rmsnorm,ssd,prefill_profile --src DIR
@@ -133,6 +144,9 @@ def rmsnorm_cases(torch, ops, ref, timer, dev):
         # decode step of the serve batch (4 rows) and the longest prompt (300)
         ("bfloat16", 4, 1024), ("bfloat16", 300, 1024),
         ("bfloat16", 4, 2048), ("bfloat16", 300, 2048),
+        # the training steps' rows: deepseek-7b at batch 4 x 512, mamba2-370m
+        # at batch 8 x 512
+        ("bfloat16", 2048, 4096), ("bfloat16", 4096, 1024), ("bfloat16", 4096, 2048),
     ]
     for dtype, rows, D in cases:
         tdt = getattr(torch, dtype)
@@ -186,6 +200,7 @@ def flash_cases(torch, ops, ref, timer, dev):
         ("decode", 1, 1, 512, 32, 32, 128, "bfloat16", None, decode_q[-1:], decode_kv),
         ("prefill", 1, 200, 200, 32, 32, 128, "bfloat16", None, None, None),  # longest prompt
         ("decode_gqa", 8, 1, 512, 32, 8, 128, "bfloat16", None, decode_q, decode_kv),
+        ("train", 4, 512, 512, 32, 32, 128, "bfloat16", None, None, None),  # deepseek-7b's step
     ]
     gen = torch.Generator(device=dev).manual_seed(2)
     out = []
@@ -264,6 +279,7 @@ def ssd_cases(torch, ops, ref, timer, dev):
         ("sweep", 2, 96, 2, 64, 128, 32, "float32", "float32"),
         ("sweep", 1, 200, 3, 16, 32, 64, "float32", "float32"),
         ("reduced", 1, 12, 8, 16, 16, 16, "float32", "float32"),
+        ("train", 8, 512, 32, 64, 128, 128, "bfloat16", "float32"),  # mamba2-370m's step
     ]
     gen = torch.Generator(device=dev).manual_seed(5)
     out = []
@@ -491,13 +507,14 @@ def ssm_prefill_decode_consistency(torch, np, cfg, params):
 
     from repro_torch.models import Model
     from repro_torch.serve.engine import ServeEngine
+    from repro_torch.tree import tree_map
 
     rng = np.random.default_rng(6)
     ns = [41, 204]  # prefills of 37 and 200 tokens: a tail chunk each
     toks = [rng.integers(0, cfg.vocab_size, n).tolist() for n in ns]
     for dtype, tol in (("bfloat16", 5e-2), ("float32", 1e-3)):
         c = dataclasses.replace(cfg, dtype=dtype)
-        p = params if dtype == cfg.dtype else _tree_map(lambda t: t.float(), params)
+        p = params if dtype == cfg.dtype else tree_map(lambda t: t.float(), params)
         model = Model(c)
         dev = model.device
         prompts = [torch.tensor([t], dtype=torch.int32, device=dev) for t in toks]
@@ -561,12 +578,10 @@ def small_ssm_against_cpu(torch, np, ops):
     assert worst <= tol, worst
 
 
-def _tree_map(fn, tree):
-    return {k: _tree_map(fn, v) if isinstance(v, dict) else fn(v) for k, v in tree.items()}
-
-
 def _tree_to(tree, device):
-    return _tree_map(lambda t: t.to(device), tree)
+    from repro_torch.tree import tree_map
+
+    return tree_map(lambda t: t.to(device), tree)
 
 
 def profile_decode(torch, cfg, params, batch: int = 4, steps: int = 5):
@@ -651,6 +666,312 @@ def calibrate_phase(cfg, params, card):
         f"(1, 8, 32, 128), 24 steps each: base {curve.base!r} s, per_req {curve.per_req!r} s "
         f"({time.perf_counter() - t0:.1f} s); step_time(b) ms: "
         + ", ".join(f"{b}: {curve.step_time(b) * 1e3:.3f}" for b in (1, 8, 32, 128)))
+
+
+# --------------------------------------------------------------------------
+# phase 8: training
+# --------------------------------------------------------------------------
+
+
+def _launch_counts(ops):
+    """Launches per kernel and per route, as one flat dict."""
+    out = dict(ops.LAUNCHES)
+    out.update({f"flash/{r}": n for r, n in ops.FLASH_ROUTES.items()})
+    out.update({f"ssd/{r}": n for r, n in ops.SSD_ROUTES.items()})
+    return out
+
+
+def _diff(after, before):
+    return {k: after[k] - before[k] for k in after}
+
+
+def expected_first_loss(cfg) -> float:
+    """The mean NLL of uniform random labels at init: ln(V) + s^2 / 2 over
+    the padded vocab V, where s^2 = D std^2 is the variance of a logit (the
+    final norm leaves each row of h at RMS 1, and the unembedding's entries
+    are N(0, std^2)): 1 for deepseek-7b (std D^-0.5), 0.41 for mamba2-370m
+    (tied, std 0.02)."""
+    import math
+
+    from repro_torch.models.layers import embedding_spec
+
+    spec = embedding_spec(cfg)
+    std = spec["tokens" if cfg.tie_embeddings else "unembed"][1]
+    return math.log(cfg.padded_vocab) + cfg.d_model * std**2 / 2
+
+
+def timed_step(torch, ops, step_fn, state, batch, records):
+    """One train step; appends to ``records`` its host-clock wall time to
+    a synchronised end, loss, grad norm and the launches it made."""
+    before = _launch_counts(ops)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state, metrics = step_fn(state, batch)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    records.append(dict(wall=wall, loss=float(metrics["loss"]),
+                        grad_norm=float(metrics["grad_norm"]),
+                        launches=_diff(_launch_counts(ops), before)))
+    return state, metrics
+
+
+def check_train_records(cfg, records, per_step, tokens_per_step, label):
+    """Finite losses and grad norms, the step-0 loss near its expected
+    value, and the launches of every step as predicted."""
+    import math
+
+    want0 = expected_first_loss(cfg)
+    ln_v = math.log(cfg.padded_vocab)
+    for i, r in enumerate(records):
+        log(f"{label}: step {i} loss {r['loss']!r} grad_norm {r['grad_norm']!r} wall "
+            f"{r['wall'] * 1e3:.3f} ms = {tokens_per_step / r['wall']:.1f} tokens/s; launches "
+            f"{ {k: v for k, v in r['launches'].items() if v} }")
+    assert all(math.isfinite(r["loss"]) and math.isfinite(r["grad_norm"]) for r in records), records
+    loss0 = records[0]["loss"]
+    log(f"{label}: step-0 loss {loss0!r}: ln(V) = {ln_v!r} (distance {loss0 - ln_v:+.4f}), expected "
+        f"ln(V) + s^2/2 = {want0!r} (distance {loss0 - want0:+.4f}, tol 0.5)")
+    assert abs(loss0 - want0) <= 0.5, (loss0, want0)
+    for i, r in enumerate(records):
+        got = {k: v for k, v in r["launches"].items() if v}
+        assert got == per_step, (label, i, got, per_step)
+
+
+def _kernel_kind(name: str) -> str:
+    """A coarse class of a device kernel, from its name."""
+    k = name.lower()
+    if any(s in k for s in ("rmsnorm", "flash", "ssd")):
+        return "hand-written"
+    if any(s in k for s in ("gemm", "nvjet", "xmma", "cutlass", "cublas")):
+        return "gemm"
+    if "reduce" in k:
+        return "reduction"
+    if "copy" in k:
+        return "copy/cast"
+    return "elementwise"
+
+
+def profile_train_step(torch, model, opt_cfg, step_fn, state, batch, label):
+    """Device busy share and time by kernel of one train step, from
+    torch.profiler; then one more step split into its two halves,
+    loss_and_grads and adamw_update, each timed to a synchronised end."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.train.optimizer import adamw_update
+    from repro_torch.train.train_step import loss_and_grads
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        state, _ = step_fn(state, batch)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    _, _, grads = loss_and_grads(model, state.params, batch)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    adamw_update(opt_cfg, state.params, grads, state.opt)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    log(f"profile {label}: an unprofiled step split: loss_and_grads {(t1 - t0) * 1e3:.3f} ms, "
+        f"adamw_update {(t2 - t1) * 1e3:.3f} ms (host clock, synchronised)")
+    kernels = [e for e in prof.key_averages() if e.device_type.name == "CUDA"]
+    busy_us = sum(e.self_device_time_total for e in kernels)
+    if not busy_us:
+        log(f"profile {label}: the profiler recorded no device time; busy share not measured")
+        return
+    kinds = {}
+    for e in kernels:
+        ms, n = kinds.get(_kernel_kind(e.key), (0.0, 0))
+        kinds[_kernel_kind(e.key)] = (ms + e.self_device_time_total / 1e3, n + e.count)
+    log(f"profile {label}: one step, wall {wall_ms:.3f} ms (profiled), device busy "
+        f"{busy_us / 1e3:.4f} ms = {busy_us / 1e3 / wall_ms:.4f} of wall, "
+        f"{sum(e.count for e in kernels)} kernels; by kind (ms, launches): "
+        + ", ".join(f"{k} {ms:.4f} {n}" for k, (ms, n) in sorted(kinds.items(), key=lambda kv: -kv[1][0])))
+    ranked = sorted(kernels, key=lambda e: -e.self_device_time_total)
+    for e in ranked[:12] + [e for e in ranked[12:] if _kernel_kind(e.key) == "hand-written"]:
+        log(f"profile {label}:   {e.self_device_time_total / 1e3:9.4f} ms {e.count:6d}x  {e.key[:120]}")
+
+
+def train_deepseek(torch, ops, dev, steps: int = 3):
+    """Main path 3: deepseek-7b at full width, depth cut to 8 layers (the
+    reference's fp32 AdamW moments for all 30 would not fit in 80 GB),
+    bf16, batch 4 x seq 512 from DataLoader(seed=0), make_train_step on
+    init_train_state.  Returns its launches and flash launches by route."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import Model
+    from repro_torch.models.model import n_params
+    from repro_torch.train.data import DataLoader
+    from repro_torch.train.optimizer import AdamWConfig
+    from repro_torch.train.train_step import init_train_state, make_train_step
+
+    cfg = dataclasses.replace(get_config("deepseek-7b"), n_layers=8)
+    model = Model(cfg)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    state = init_train_state(model, torch.Generator(device=dev).manual_seed(0))
+    torch.cuda.synchronize()
+    state_gib = torch.cuda.memory_allocated() / 2**30
+    log(f"train deepseek-7b: {cfg.n_layers} layers, {n_params(state.params)} params, state "
+        f"{state_gib:.2f} GiB (bf16 params, fp32 m and v), init {time.perf_counter() - t0:.1f} s")
+    opt_cfg = AdamWConfig(warmup_steps=1, total_steps=100)
+    step_fn = make_train_step(model, opt_cfg)
+    loader = DataLoader(cfg, 4, 512, seed=0)
+    batches = [{k: torch.from_numpy(v).to(dev) for k, v in loader.next().items()}
+               for _ in range(steps + 1)]
+    L = cfg.n_layers
+    records = []
+    ops.reset_launches()
+    for batch in batches[:steps]:
+        state, _ = timed_step(torch, ops, step_fn, state, batch, records)
+    launches, flash_routes = dict(ops.LAUNCHES), dict(ops.FLASH_ROUTES)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    check_train_records(cfg, records, {"rmsnorm": 4 * L + 1, "flash_attention": 2 * L,
+                                       "flash/mma_prefill": 2 * L}, 4 * 512, "train deepseek-7b")
+    walls = sorted(r["wall"] for r in records[1:])
+    log(f"train deepseek-7b: {steps} steps at batch 4 x seq 512; step wall after the first "
+        f"{[round(w * 1e3, 3) for w in walls]} ms, {4 * 512 / walls[0]:.1f} tokens/s at the best; "
+        f"peak memory {peak:.2f} GiB; launches {launches}, flash by route {flash_routes}")
+    profile_train_step(torch, model, opt_cfg, step_fn, state, batches[steps], "train deepseek-7b")
+    return launches, flash_routes
+
+
+def train_mamba(torch, ops, steps: int = 4):
+    """Main path 4: mamba2-370m at full width and depth through the
+    training entry point, train_loop(reduced=False, batch 8, seq 512), with
+    each step's launches, loss and time read from a wrapped step function.
+    Returns its launches and SSD launches by route."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import train as train_mod
+
+    records = []
+    make = train_mod.make_train_step
+
+    def counted_make(*args, **kwargs):
+        step_fn = make(*args, **kwargs)
+
+        return lambda state, batch: timed_step(torch, ops, step_fn, state, batch, records)
+
+    train_mod.make_train_step = counted_make
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launches()
+        t0 = time.perf_counter()
+        res = train_mod.train_loop("mamba2-370m", reduced=False, steps=steps, batch=8, seq=512,
+                                   device="cuda", log_every=1)
+        wall = time.perf_counter() - t0
+        launches, ssd_routes = dict(ops.LAUNCHES), dict(ops.SSD_ROUTES)
+    finally:
+        train_mod.make_train_step = make
+    cfg = get_config("mamba2-370m")
+    L = cfg.n_layers
+    assert len(records) == steps and res["final_step"] == steps, (len(records), res)
+    check_train_records(cfg, records, {"rmsnorm": 4 * L + 1, "ssd_scan": 2 * L, "ssd/mma": 2 * L},
+                        8 * 512, "train mamba2-370m")
+    walls = sorted(r["wall"] for r in records[1:])
+    log(f"train mamba2-370m: train_loop {res} in {wall:.1f} s; step wall after the first "
+        f"{[round(w * 1e3, 3) for w in walls]} ms, {8 * 512 / walls[0]:.1f} tokens/s at the best; "
+        f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; launches {launches}, "
+        f"ssd by route {ssd_routes}")
+    profile_mamba_step(torch, cfg)
+    return launches, ssd_routes
+
+
+def profile_mamba_step(torch, cfg):
+    """One profiled mamba2-370m train step (batch 8 x seq 512) after a
+    warm-up step, outside the counted run."""
+    from repro_torch.models import Model
+    from repro_torch.train.data import DataLoader
+    from repro_torch.train.optimizer import AdamWConfig
+    from repro_torch.train.train_step import init_train_state, make_train_step
+
+    model = Model(cfg)
+    state = init_train_state(model, torch.Generator(device=model.device).manual_seed(0))
+    opt_cfg = AdamWConfig(warmup_steps=1, total_steps=100)
+    step_fn = make_train_step(model, opt_cfg)
+    loader = DataLoader(cfg, 8, 512, seed=0)
+    warm, batch = ({k: torch.from_numpy(v).to(model.device) for k, v in loader.next().items()}
+                   for _ in range(2))
+    state, _ = step_fn(state, warm)
+    profile_train_step(torch, model, opt_cfg, step_fn, state, batch, "train mamba2-370m")
+
+
+def small_train_against_cpu(torch, ops, steps: int = 3):
+    """Small float32 models (reduced deepseek-7b at head_dim 64, reduced
+    mamba2-370m) trained on the card through the kernels and on the CPU
+    through the plain versions, from the same weights and batches.  Losses
+    within 1e-5 relative at every step.  Params: an Adam step is about
+    +-lr wherever the gradient is tiny, so an element whose gradient is
+    within float noise of 0 may step the other way on the other device;
+    none may differ by more than 2 sum(lr), and at most a 1e-3 share of a
+    leaf's elements by more than 1e-5."""
+    import numpy as np
+
+    from repro_torch.configs import reduced_config
+    from repro_torch.models import Model
+    from repro_torch.train.data import DataLoader
+    from repro_torch.train.optimizer import AdamWConfig, cosine_lr
+    from repro_torch.train.train_step import init_train_state, make_train_step
+    from repro_torch.tree import leaves_with_paths, tree_map
+
+    opt = AdamWConfig(lr_peak=1e-3, warmup_steps=2, total_steps=10)
+    bound = 2 * sum(float(cosine_lr(opt, torch.tensor(s + 1))) for s in range(steps))
+    for arch, kw in (("deepseek-7b", {"head_dim": 64}), ("mamba2-370m", {})):
+        cfg = reduced_config(arch, **kw)
+        cpu, gpu = Model(cfg, device="cpu"), Model(cfg)
+        s_cpu = init_train_state(cpu, torch.Generator().manual_seed(11))
+        # a copy: the steps update each state's tensors in place
+        s_gpu = tree_map(lambda t: t.to(gpu.device, copy=True), s_cpu)
+        f_cpu, f_gpu = make_train_step(cpu, opt), make_train_step(gpu, opt)
+        loader = DataLoader(cfg, 4, 40, seed=0)
+        loss_err, launches = 0.0, {}
+        for _ in range(steps):
+            batch = {k: torch.from_numpy(v) for k, v in loader.next().items()}
+            s_cpu, m_cpu = f_cpu(s_cpu, batch)
+            before = _launch_counts(ops)
+            s_gpu, m_gpu = f_gpu(s_gpu, {k: v.to(gpu.device) for k, v in batch.items()})
+            for k, v in _diff(_launch_counts(ops), before).items():
+                if v:
+                    launches[k] = launches.get(k, 0) + v
+            lc, lg = float(m_cpu["loss"]), float(m_gpu["loss"])
+            loss_err = max(loss_err, abs(lg - lc) / abs(lc))
+        want = dict(leaves_with_paths(s_cpu.params))
+        worst, share = 0.0, 0.0
+        for key, p in leaves_with_paths(s_gpu.params):
+            err = (p.cpu() - want[key]).abs().numpy()
+            worst, share = max(worst, float(err.max())), max(share, float(np.mean(err > 1e-5)))
+        log(f"small train {arch}: {steps} steps, card kernels vs cpu plain path: worst loss rel err "
+            f"{loss_err:.3e} (tol 1e-5); params worst abs err {worst:.3e} (bound {bound:.3e}), "
+            f"largest share of a leaf off by > 1e-5 {share:.2e} (tol 1e-3); launches {launches}")
+        L = cfg.n_layers
+        mixer = {"deepseek-7b": ("flash_attention", "flash/fma"), "mamba2-370m": ("ssd_scan", "ssd/fma")}
+        assert launches == {"rmsnorm": steps * (4 * L + 1),
+                            **{k: steps * 2 * L for k in mixer[arch]}}, launches
+        assert loss_err <= 1e-5 and worst <= bound and share <= 1e-3, (loss_err, worst, share)
+
+
+def resume_on_card(torch):
+    """train_loop on reduced mamba2-370m on the card: fail after step 6 of
+    10 (checkpoints every 4, in a temporary directory deleted afterwards),
+    resume from step 4; the final loss must equal a straight run's."""
+    import tempfile
+
+    from repro_torch.launch.train import train_loop
+
+    kw = dict(steps=10, batch=4, seq=64, ckpt_every=4, log_every=100, device="cuda")
+    with tempfile.TemporaryDirectory() as tmp:
+        try:
+            train_loop("mamba2-370m", ckpt_dir=f"{tmp}/a", fail_at=6, **kw)
+        except RuntimeError as e:
+            assert "injected failure at step 6" in str(e), e
+        else:
+            raise AssertionError("train_loop did not fail at step 6")
+        resumed = train_loop("mamba2-370m", ckpt_dir=f"{tmp}/a", **kw)
+        straight = train_loop("mamba2-370m", ckpt_dir=f"{tmp}/b", **kw)
+    log(f"resume: failed after step 6, resumed from step 4: last loss {resumed['last_loss']!r}; "
+        f"straight run {straight['last_loss']!r}")
+    assert resumed["last_loss"] == straight["last_loss"], (resumed, straight)
 
 
 # --------------------------------------------------------------------------
@@ -766,9 +1087,21 @@ def main(argv=None) -> int:
     small_ssm_against_cpu(torch, np, ops)
     profile_decode(torch, cfg, params)
     profile_prefill(torch, np, cfg, params)
+    del params
+    torch.cuda.empty_cache()
+
+    # 8. training (main paths 3 and 4), and its checks
+    path_launches["deepseek-7b/train"], routes = train_deepseek(torch, ops, dev)
+    flash_routes = {r: c + routes[r] for r, c in flash_routes.items()}
+    torch.cuda.empty_cache()
+    path_launches["mamba2-370m/train"], routes = train_mamba(torch, ops)
+    ssd_routes = {r: c + routes[r] for r, c in ssd_routes.items()}
+    torch.cuda.empty_cache()
+    small_train_against_cpu(torch, ops)
+    resume_on_card(torch)
 
     # one line per kernel, at its main-path shape; launches summed over the
-    # two main paths' serve runs
+    # main paths' serve and train runs
     line = []
     for name, source, replaces, chosen in (
         ("rmsnorm", "src/repro_torch/csrc/rmsnorm.cu", "src/repro/kernels/rmsnorm.py:24",
@@ -800,21 +1133,14 @@ def main(argv=None) -> int:
 
 
 def init_params(torch, Model, cfg, dev):
+    from repro_torch.models.model import n_params
+
     t0 = time.perf_counter()
     params = Model(cfg).init(torch.Generator(device=dev).manual_seed(0))
     torch.cuda.synchronize()
-    n_params = sum(t.numel() for t in _leaves(params))
-    log(f"init: {cfg.name} {cfg.n_layers} layers, {n_params} params in {cfg.dtype}, "
+    log(f"init: {cfg.name} {cfg.n_layers} layers, {n_params(params)} params in {cfg.dtype}, "
         f"{time.perf_counter() - t0:.1f} s")
     return params
-
-
-def _leaves(tree):
-    for v in tree.values():
-        if isinstance(v, dict):
-            yield from _leaves(v)
-        else:
-            yield v
 
 
 if __name__ == "__main__":

@@ -1,23 +1,26 @@
-"""Wrappers of the port's kernels, forward only.
+"""Wrappers of the port's kernels, with their gradients.
 
 Each wrapper dispatches on the device of the tensor it is given: a CPU
-tensor goes to the plain version in ``ref``; a CUDA tensor goes to the
-hand-written kernel in ``csrc/`` or the call raises.  Nothing falls back
-from the kernel to the plain version.
+tensor goes to the plain version in ``ref``, and autograd runs through
+it; a CUDA tensor goes to the hand-written kernel in ``csrc/`` or the
+call raises.  Nothing falls back from the kernel to the plain version.
+
+On the card each wrapper is a ``torch.autograd.Function``: the forward is
+the kernel, and the backward recomputes the plain version under
+``torch.enable_grad()`` and differentiates it (``_vjp``), as the JAX
+package's flash-attention ``custom_vjp`` does (``repro/kernels/ops.py``,
+``_fa_bwd``).  None of the three kernels has a backward kernel of its own.
 
 ``LAUNCHES`` counts, per wrapper, the kernel launches it has made; it is
 incremented right after a launch succeeds and nowhere else, so a run can
-show that its main path went through the kernels.  ``FLASH_ROUTES`` and
-``SSD_ROUTES`` split the flash-attention and SSD-scan launches by the
-kernel each call ran (``_flash_route``, ``_ssd_route``).
-
-The JAX package's ``custom_vjp`` backward of flash attention
-(``repro/kernels/ops.py``) and any backward of the SSD scan wait for the
-training slice.
+show that its main path went through the kernels (a block recomputed by
+``torch.utils.checkpoint`` launches its kernels again, and counts them).
+``FLASH_ROUTES`` and ``SSD_ROUTES`` split the flash-attention and SSD-scan
+launches by the kernel each call ran (``_flash_route``, ``_ssd_route``).
 """
 from __future__ import annotations
 
-from typing import Dict, Optional, Tuple
+from typing import Callable, Dict, Optional, Sequence, Tuple
 
 import torch
 
@@ -82,13 +85,68 @@ def _require_aligned(name: str, **tensors: torch.Tensor) -> None:
             raise ValueError(f"{name}: {what} must be 16-byte aligned")
 
 
+def _vjp(
+    plain: Callable[..., object],
+    inputs: Sequence[Optional[torch.Tensor]],
+    needs: Sequence[bool],
+    grads_out: Sequence[Optional[torch.Tensor]],
+) -> Tuple[Optional[torch.Tensor], ...]:
+    """Gradients of ``plain(*inputs)`` (one output or a tuple) against
+    ``grads_out``, for each input whose ``needs`` is True; None for the
+    others, and for an output whose gradient is None.  The plain version
+    is recomputed here on the inputs the forward saved (strided views
+    stay strided), under ``enable_grad`` since backward runs without it."""
+    with torch.enable_grad():
+        live = [
+            t.detach().requires_grad_(n) if t is not None else None
+            for t, n in zip(inputs, needs)
+        ]
+        outs = plain(*live)
+        outs = outs if isinstance(outs, tuple) else (outs,)
+        pairs = [(o, g) for o, g in zip(outs, grads_out) if g is not None]
+        wrt = [t for t, n in zip(live, needs) if n]
+        got = iter(
+            torch.autograd.grad(
+                [o for o, _ in pairs], wrt, [g for _, g in pairs], allow_unused=True
+            )
+            if pairs and wrt
+            else [None] * len(wrt)
+        )
+    return tuple(next(got) if n else None for n in needs)
+
+
+class _RMSNorm(torch.autograd.Function):
+    """Forward: the RMSNorm kernel.  Backward: ``ref.rmsnorm_ref``
+    recomputed and differentiated."""
+
+    @staticmethod
+    def forward(ctx, x, scale, eps):
+        ctx.save_for_backward(x, scale)
+        ctx.eps = eps
+        return _rmsnorm_kernel(x, scale, eps)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, scale = ctx.saved_tensors
+        return _vjp(
+            lambda x_, s_: ref.rmsnorm_ref(x_, s_, ctx.eps),
+            (x, scale), ctx.needs_input_grad[:2], (g,),
+        ) + (None,)
+
+
 def rmsnorm(
     x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6
 ) -> torch.Tensor:
     """``x * rsqrt(mean(x^2) + eps) * scale`` over the last axis of x
-    (any leading shape); fp32 statistics, output in x's dtype."""
+    (any leading shape); fp32 statistics, output in x's dtype.  On the
+    card: one kernel launch forward; the backward recomputes the plain
+    version."""
     if _on_cpu(x, scale):
         return ref.rmsnorm_ref(x, scale, eps)
+    return _RMSNorm.apply(x, scale, eps)
+
+
+def _rmsnorm_kernel(x: torch.Tensor, scale: torch.Tensor, eps: float) -> torch.Tensor:
     D = x.shape[-1]
     if scale.shape != (D,) or scale.dtype != torch.float32:
         raise ValueError(
@@ -129,12 +187,40 @@ def flash_attention(
     causal: bool = True,
     window: Optional[int] = None,
 ) -> torch.Tensor:
-    """Online-softmax GQA attention, forward.  Any Sq and T; the KV head of
-    query head h is h // (H // G); masks come from the positions; output
-    in q's dtype.  On the card: head_dim 64 or 128, float32 or bfloat16,
-    one launch of the kernel ``_flash_route`` names."""
+    """Online-softmax GQA attention.  Any Sq and T; the KV head of query
+    head h is h // (H // G); masks come from the positions; output in q's
+    dtype.  On the card: head_dim 64 or 128, float32 or bfloat16, one
+    launch of the kernel ``_flash_route`` names; the backward recomputes
+    ``ref.flash_attention_ref`` (the gradient of the fp32 plain function,
+    as in the JAX package)."""
     if _on_cpu(q, k, v, q_pos, kv_pos):
         return ref.flash_attention_ref(q, k, v, q_pos, kv_pos, causal, window)
+    return _FlashAttention.apply(q, k, v, q_pos, kv_pos, causal, window)
+
+
+class _FlashAttention(torch.autograd.Function):
+    """Forward: the flash-attention kernel.  Backward: the JAX package's
+    ``_fa_bwd``, ``ref.flash_attention_ref`` recomputed and differentiated
+    in q, k and v."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, q_pos, kv_pos, causal, window):
+        ctx.save_for_backward(q, k, v, q_pos, kv_pos)
+        ctx.causal, ctx.window = causal, window
+        return _flash_attention_kernel(q, k, v, q_pos, kv_pos, causal, window)
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v, q_pos, kv_pos = ctx.saved_tensors
+        return _vjp(
+            lambda q_, k_, v_: ref.flash_attention_ref(
+                q_, k_, v_, q_pos, kv_pos, ctx.causal, ctx.window
+            ),
+            (q, k, v), ctx.needs_input_grad[:3], (g,),
+        ) + (None,) * 4
+
+
+def _flash_attention_kernel(q, k, v, q_pos, kv_pos, causal, window) -> torch.Tensor:
     B, Sq, H, K = q.shape
     T, G = k.shape[1], k.shape[2]
     if k.shape != (B, T, G, K) or v.shape != k.shape:
@@ -235,7 +321,7 @@ def ssd_scan(
     init_state: Optional[torch.Tensor] = None,  # [B,H,N,P] float32
     out_dtype: Optional[torch.dtype] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Mamba2 SSD chunked scan, forward.  Returns (y [B,S,H,P] in
+    """Mamba2 SSD chunked scan.  Returns (y [B,S,H,P] in
     ``out_dtype``, default x's dtype; final state [B,H,N,P] float32).
 
     x, B and C are float32 or bfloat16 (one type for the three) and may be
@@ -244,7 +330,7 @@ def ssd_scan(
     one of 16, 32, 64, 128; S >= 1, and S need not be a chunk multiple.
     On a CPU tensor this runs ``ref.ssd_chunked_ref``, the chunked
     algorithm of the JAX model; on the card, one launch of the kernel
-    ``_ssd_route`` names."""
+    ``_ssd_route`` names, and the backward recomputes the plain version."""
     Bsz, S, H, P = x.shape
     N = Bm.shape[-1]
     out_dtype = out_dtype or x.dtype
@@ -276,12 +362,42 @@ def ssd_scan(
         )
     if dt.dtype != torch.float32 or A.dtype != torch.float32:
         raise TypeError("ssd_scan: dt and A must be float32")
-    code = _dtype_code(x.dtype, "ssd_scan")
-    out_code = _dtype_code(out_dtype, "ssd_scan out_dtype")
+    _dtype_code(x.dtype, "ssd_scan")  # raises on a type the kernel does not take
+    _dtype_code(out_dtype, "ssd_scan out_dtype")
     tensors = (x, dt, A, Bm, Cm) + ((init_state,) if init_state is not None else ())
     if _on_cpu(*tensors):
         y, state = ref.ssd_chunked_ref(x, dt, A, Bm, Cm, chunk, init_state)
         return y.to(out_dtype), state
+    return _SSDScan.apply(x, dt, A, Bm, Cm, init_state, chunk, out_dtype)
+
+
+class _SSDScan(torch.autograd.Function):
+    """Forward: the SSD-scan kernel.  Backward: ``ref.ssd_chunked_ref``
+    (the JAX model's ``ssd_chunked``, which the JAX package differentiates)
+    recomputed on the saved inputs, x, B and C as the strided views they
+    came as, and differentiated; the final state may get no gradient."""
+
+    @staticmethod
+    def forward(ctx, x, dt, A, Bm, Cm, init_state, chunk, out_dtype):
+        ctx.set_materialize_grads(False)
+        ctx.save_for_backward(x, dt, A, Bm, Cm, init_state)
+        ctx.chunk, ctx.out_dtype = chunk, out_dtype
+        return _ssd_scan_kernel(x, dt, A, Bm, Cm, chunk, init_state, out_dtype)
+
+    @staticmethod
+    def backward(ctx, gy, gstate):
+        def plain(x, dt, A, Bm, Cm, init_state):
+            y, state = ref.ssd_chunked_ref(x, dt, A, Bm, Cm, ctx.chunk, init_state)
+            return y.to(ctx.out_dtype), state
+
+        return _vjp(
+            plain, ctx.saved_tensors, ctx.needs_input_grad[:6], (gy, gstate)
+        ) + (None, None)
+
+
+def _ssd_scan_kernel(x, dt, A, Bm, Cm, chunk, init_state, out_dtype):
+    Bsz, S, H, P = x.shape
+    N = Bm.shape[-1]
     if x.stride(3) != 1 or x.stride(2) != P or Bm.stride(2) != 1 or Cm.stride(2) != 1:
         raise ValueError(
             "ssd_scan: x must be dense over [H,P] and B, C over N "
@@ -303,7 +419,8 @@ def ssd_scan(
         Bm.data_ptr(), Bm.stride(0), Bm.stride(1),
         Cm.data_ptr(), Cm.stride(0), Cm.stride(1),
         init_state.data_ptr() if init_state is not None else None,
-        y.data_ptr(), state.data_ptr(), Bsz, S, H, P, N, chunk, code, out_code,
+        y.data_ptr(), state.data_ptr(), Bsz, S, H, P, N, chunk,
+        _dtype_code(x.dtype, "ssd_scan"), _dtype_code(out_dtype, "ssd_scan out_dtype"),
         _SSD_ROUTE_CODES[route], ws.data_ptr() if ws is not None else None,
         _stream(x),
     )

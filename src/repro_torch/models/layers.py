@@ -1,6 +1,7 @@
 """Dense-decoder layers of the port: RMSNorm, RoPE, GQA attention with a KV
-cache, gated and plain MLP, embeddings.  Plain functions on dicts of
-tensors, in the JAX package's layouts (``repro/models/layers.py``):
+cache, gated and plain MLP, embeddings, the cross-entropy loss.  Plain
+functions on dicts of tensors, in the JAX package's layouts
+(``repro/models/layers.py``):
 
   x            [B, S, D]
   q            [B, S, H, K]      (K = head_dim)
@@ -8,10 +9,10 @@ tensors, in the JAX package's layouts (``repro/models/layers.py``):
   wq [D,H,K]   wk, wv [D,G,K]    wo [H,K,D]
   w_up, w_gate [D,F]   w_down [F,D]   tokens [V,D]   unembed [D,V]
 
-Weights live in ``cfg.dtype``; norm scales, softmax and norm statistics
-are fp32.  RMSNorm and attention go through ``kernels.ops``: on CUDA
-tensors they launch the hand-written kernels, on CPU tensors they run the
-plain versions.
+Weights live in ``cfg.dtype``; norm scales, softmax, norm statistics and
+the loss are fp32.  RMSNorm and attention go through ``kernels.ops``: on
+CUDA tensors they launch the hand-written kernels, on CPU tensors they
+run the plain versions.
 """
 from __future__ import annotations
 
@@ -35,17 +36,22 @@ def dtype_of(cfg: ArchConfig) -> torch.dtype:
 
 
 def normal(
-    gen: torch.Generator, shape: Tuple[int, ...], std: float, dtype: torch.dtype
+    gen: torch.Generator, shape: Tuple[int, ...], std: float, dtype: torch.dtype,
+    device=None,
 ) -> torch.Tensor:
-    """Seeded N(0, std^2) draw, taken in fp32 on the generator's device and
-    cast to ``dtype`` (the JAX init's order of operations)."""
-    w = torch.randn(shape, generator=gen, device=gen.device, dtype=torch.float32)
+    """Seeded N(0, std^2) draw, taken in fp32 on ``device`` (default: the
+    generator's) and cast to ``dtype`` (the JAX init's order of
+    operations)."""
+    w = torch.randn(shape, generator=gen, device=device or gen.device, dtype=torch.float32)
     return w.mul_(std).to(dtype)
 
 
-def init_from_spec(gen: torch.Generator, spec: Any, dtype: torch.dtype) -> Any:
+def init_from_spec(
+    gen: torch.Generator, spec: Any, dtype: torch.dtype, device=None
+) -> Any:
     """Params for a (nested) spec of ``(shape, init)`` leaves, drawn in the
-    spec's order.  ``init`` is one of:
+    spec's order on ``device`` (default: the generator's; ``"meta"`` gives
+    shapes and dtypes only).  ``init`` is one of:
 
     * a float std: a seeded normal draw in ``dtype``;
     * None: fp32 ones (norm scales, Mamba's D skip);
@@ -55,9 +61,9 @@ def init_from_spec(gen: torch.Generator, spec: Any, dtype: torch.dtype) -> Any:
       inverse softplus of a uniform draw (Mamba's dt bias).
     """
     if isinstance(spec, dict):
-        return {k: init_from_spec(gen, v, dtype) for k, v in spec.items()}
+        return {k: init_from_spec(gen, v, dtype, device) for k, v in spec.items()}
     shape, init = spec
-    dev = gen.device
+    dev = gen.device if device is None else torch.device(device)
     if init is None:
         return torch.ones(shape, dtype=torch.float32, device=dev)
     if init == "zeros":
@@ -71,7 +77,7 @@ def init_from_spec(gen: torch.Generator, spec: Any, dtype: torch.dtype) -> Any:
         if kind == "softplus_inv_uniform":
             return torch.log(torch.expm1(u))
         raise ValueError(f"unknown init kind {kind!r}")
-    return normal(gen, shape, init, dtype)
+    return normal(gen, shape, init, dtype, dev)
 
 
 # --------------------------------------------------------------------------
@@ -292,3 +298,19 @@ def unembed(p: Params, cfg: ArchConfig, x: torch.Tensor) -> torch.Tensor:
     if cfg.tie_embeddings:
         return x @ p["tokens"].T
     return x @ p["unembed"]
+
+
+def cross_entropy(
+    logits: torch.Tensor,  # [B,S,V]
+    labels: torch.Tensor,  # [B,S]; -1 = ignore
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(masked mean NLL, token count), both fp32 scalars; labels of -1
+    count for nothing, and the count is at least 1."""
+    logits = logits.float()
+    mask = (labels >= 0).float()
+    safe = labels.clamp(min=0).long()
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, safe[..., None])[..., 0]
+    nll = (lse - gold) * mask
+    denom = mask.sum().clamp(min=1.0)
+    return nll.sum() / denom, denom

@@ -1,19 +1,21 @@
-"""Model facade of the port: init / prefill / decode for the dense and ssm
-families.
+"""Model facade of the port: init / loss / prefill / decode for the dense
+and ssm families.
 
 The JAX package scans over stacked blocks (``repro/models/model.py``); the
 port keeps the stacked ``[n_blocks, ...]`` parameter and cache leaves and
 loops over the block index, and within a block over the sub-layers of
 ``cfg.layer_kinds()`` (mixer ``attn`` or ``mamba``, ff ``dense`` or
-``none``).  MoE and the hybrid, vlm and audio families raise
-``NotImplementedError`` naming the ROADMAP.md item that will port them;
-``Model.loss`` waits for the training slice (queue A item 5).
+``none``).  ``loss`` recomputes every block in the backward pass
+(``torch.utils.checkpoint``, the JAX package's ``jax.checkpoint`` with
+``nothing_saveable``).  MoE and the hybrid, vlm and audio families raise
+``NotImplementedError`` naming the ROADMAP.md item that will port them.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Optional, Tuple, Union
+from typing import Any, Dict, List, Optional, Tuple, Union
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ArchConfig
 from . import layers as L
@@ -52,6 +54,19 @@ def _index(tree: Params, i: int) -> Params:
     """Block ``i`` of a stacked tree: views, so in-place cache writes land
     in the stacked tensors."""
     return {k: _index(v, i) if isinstance(v, dict) else v[i] for k, v in tree.items()}
+
+
+def _unstack(tree: Params, n: int) -> List[Params]:
+    """The ``n`` blocks of a stacked parameter tree, as views from one
+    ``torch.unbind`` per leaf: in the backward pass each stacked leaf's
+    gradient is then one stack of its blocks' gradients, not a sum of
+    ``n`` zero-padded copies as separate ``v[i]`` views would give."""
+    blocks: List[Params] = [{} for _ in range(n)]
+    for k, v in tree.items():
+        parts = _unstack(v, n) if isinstance(v, dict) else torch.unbind(v)
+        for block, part in zip(blocks, parts):
+            block[k] = part
+    return blocks
 
 
 def _apply_sub(
@@ -134,7 +149,31 @@ class Model:
             )
         return L.init_from_spec(generator, param_spec(self.cfg), L.dtype_of(self.cfg))
 
+    def param_specs(self) -> Params:
+        """The params' tree on the meta device: shapes and dtypes, no data
+        (the JAX package's ``param_specs``, an ``eval_shape`` of init)."""
+        return L.init_from_spec(
+            torch.Generator(), param_spec(self.cfg), L.dtype_of(self.cfg), device="meta"
+        )
+
     # ---- backbone -------------------------------------------------------
+
+    def _block(
+        self,
+        block: Params,
+        h: torch.Tensor,
+        q_pos: torch.Tensor,
+        block_cache: Optional[Params],
+        cache_index: L.CacheIndex,
+        decode: bool,
+    ) -> torch.Tensor:
+        for j, (mixer, ff) in enumerate(self.kinds):
+            h = _apply_sub(
+                block[f"sub{j}"], self.cfg, mixer, ff, h, q_pos,
+                block_cache[f"sub{j}"] if block_cache else None,
+                cache_index, decode,
+            )
+        return h
 
     def _backbone(
         self,
@@ -144,19 +183,45 @@ class Model:
         cache: Optional[Params] = None,
         cache_index: L.CacheIndex = None,
         decode: bool = False,
+        remat: bool = False,
     ) -> torch.Tensor:
-        for i in range(self.n_blocks):
-            block = _index(params["blocks"], i)
-            block_cache = _index(cache, i) if cache is not None else None
-            for j, (mixer, ff) in enumerate(self.kinds):
-                h = _apply_sub(
-                    block[f"sub{j}"], self.cfg, mixer, ff, h, q_pos,
-                    block_cache[f"sub{j}"] if block_cache else None,
-                    cache_index, decode,
+        """The blocks in order.  ``remat``: each block's activations are
+        recomputed in the backward pass instead of kept (training, no
+        cache); its kernels then launch twice a step."""
+        if remat and cache is not None:
+            raise ValueError("remat recomputes blocks; it takes no cache")
+        for i, block in enumerate(_unstack(params["blocks"], self.n_blocks)):
+            if remat:
+                # no block draws random numbers: no RNG state to replay
+                h = checkpoint(
+                    self._block, block, h, q_pos, None, None, False,
+                    use_reentrant=False, preserve_rng_state=False,
                 )
+            else:
+                block_cache = _index(cache, i) if cache is not None else None
+                h = self._block(block, h, q_pos, block_cache, cache_index, decode)
         return h
 
     # ---- public API -----------------------------------------------------
+
+    def loss(
+        self, params: Params, batch: Dict[str, torch.Tensor]
+    ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        """Next-token cross-entropy of ``batch["tokens"] [B,S]`` against
+        ``batch["labels"] [B,S]`` (-1 ignored), every block recomputed in
+        the backward pass.  Returns (loss, {"xent", "aux", "n_tokens"}),
+        fp32 scalars; ``aux`` (MoE's load-balance term, weight 0.01) is 0
+        for the dense and ssm families."""
+        tokens = batch["tokens"]
+        h = L.embed_tokens(params["embed"], tokens)
+        q_pos = torch.arange(tokens.shape[1], dtype=torch.int32, device=h.device)
+        h = self._backbone(params, h, q_pos, remat=True)
+        h = L.rms_norm(h, params["final_norm"])
+        logits = L.unembed(params["embed"], self.cfg, h)
+        xent, n_tok = L.cross_entropy(logits, batch["labels"])
+        aux = torch.zeros((), dtype=torch.float32, device=h.device)
+        loss = xent + 0.01 * aux
+        return loss, {"xent": xent, "aux": aux, "n_tokens": n_tok}
 
     def init_cache(
         self, batch: int, max_len: int, dtype: Optional[torch.dtype] = None
@@ -212,3 +277,9 @@ class Model:
         h = self._backbone(params, h, q_pos, cache=cache, cache_index=pos, decode=True)
         h = L.rms_norm(h, params["final_norm"])
         return L.unembed(params["embed"], self.cfg, h), cache
+
+
+def n_params(params: Params) -> int:
+    return sum(
+        v.numel() if torch.is_tensor(v) else n_params(v) for v in params.values()
+    )

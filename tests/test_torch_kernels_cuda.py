@@ -377,3 +377,123 @@ def test_ssd_mma_route_across_groups(cuda_device, S, chunk):
     torch.testing.assert_close(state, s_want, atol=2e-4, rtol=2e-4)
     y2, state2 = _ssd_mma(args, chunk, init_state=init, out_dtype=torch.float32)
     assert torch.equal(y, y2) and torch.equal(state, state2)
+
+
+# --------------------------------------------------------------------------
+# gradients: the forward is the kernel, the backward the plain version's
+# --------------------------------------------------------------------------
+
+
+def _grads(fn, inputs, seed=9):
+    """d(sum(out * w))/d(inputs) for a fixed random w per output."""
+    outs = fn(*inputs)
+    outs = outs if isinstance(outs, tuple) else (outs,)
+    g = torch.Generator(device=inputs[0].device).manual_seed(seed)
+    total = sum((o.float() * torch.randn(o.shape, generator=g, device=o.device)).sum() for o in outs)
+    return torch.autograd.grad(total, inputs)
+
+
+def _leaves_on(shape_dtypes, device, seed):
+    gen = torch.Generator(device=device).manual_seed(seed)
+    return tuple(torch.randn(s, generator=gen, device=device).to(_TDT[d]).requires_grad_()
+                 for s, d in shape_dtypes)
+
+
+def _same_grads(got, want, tol):
+    for a, b in zip(got, want):
+        assert a.dtype == b.dtype and a.shape == b.shape
+        torch.testing.assert_close(a.float(), b.float(), atol=tol, rtol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", [1024, 4096, 1000])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_rmsnorm_grad_recomputes_plain(cuda_device, D, dtype):
+    """One kernel launch forward; the gradients equal autograd through the
+    plain version (the backward recomputes it: the same arithmetic)."""
+    x, s = _leaves_on((((4, 37, D), dtype), ((D,), "float32")), cuda_device, seed=D)
+    n = ops.LAUNCHES["rmsnorm"]
+    got = _grads(lambda x, s: ops.rmsnorm(x, s), (x, s))
+    assert ops.LAUNCHES["rmsnorm"] == n + 1
+    _same_grads(got, _grads(lambda x, s: ref.rmsnorm_ref(x, s), (x, s)), 1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,route", [("bfloat16", "mma_prefill"), ("float32", "fma")])
+@pytest.mark.parametrize("G,window", [(8, None), (2, None), (8, 40)])
+def test_flash_grad_recomputes_plain(cuda_device, dtype, route, G, window):
+    """deepseek-7b's training call (self-attention over the sequence, H=8
+    heads of 128 here) launches the route's kernel once; q, k and v get the
+    gradient of the fp32 plain function."""
+    B, S, H, K = 2, 200, 8, 128
+    q, k, v = _leaves_on((((B, S, H, K), dtype), ((B, S, G, K), dtype), ((B, S, G, K), dtype)),
+                         cuda_device, seed=G)
+    pos = torch.arange(S, dtype=torch.int32, device=cuda_device)
+    n = ops.FLASH_ROUTES[route]
+    got = _grads(lambda q, k, v: ops.flash_attention(q, k, v, pos, pos, True, window), (q, k, v))
+    assert ops.FLASH_ROUTES[route] == n + 1
+    want = _grads(lambda q, k, v: ref.flash_attention_ref(q, k, v, pos, pos, True, window), (q, k, v))
+    _same_grads(got, want, 1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,route,P,N,chunk", [
+    ("bfloat16", "mma", 64, 128, 128),  # mamba2-370m's call
+    ("float32", "fma", 16, 16, 16),  # the reduced config's
+])
+@pytest.mark.parametrize("use_state", [False, True])
+def test_ssd_grad_recomputes_plain_through_views(cuda_device, dtype, route, P, N, chunk, use_state):
+    """x, B and C as strided views of one xBC tensor, as the Mamba block
+    passes them: one launch of the route's kernel; xBC (through the
+    views), dt and A get the gradient of the plain chunked scan, with or
+    without a gradient for the final state."""
+    B, S, H = 2, 300, 4
+    (xbc,) = _leaves_on((((B, S, H * P + 2 * N), dtype),), cuda_device, seed=P)
+    gen = torch.Generator(device=cuda_device).manual_seed(1)
+    dt = (torch.rand(B, S, H, generator=gen, device=cuda_device) * 0.099 + 0.001).requires_grad_()
+    A = (-(torch.rand(H, generator=gen, device=cuda_device) * 3.5 + 0.5)).requires_grad_()
+
+    def run(scan):
+        def fn(xbc, dt, A):
+            x = xbc[..., : H * P].view(B, S, H, P)
+            y, state = scan(x, dt, A, xbc[..., H * P : H * P + N], xbc[..., H * P + N :])
+            return (y, state) if use_state else y
+        return fn
+
+    n = ops.SSD_ROUTES[route]
+    got = _grads(run(lambda *a: ops.ssd_scan(*a, chunk, out_dtype=torch.float32)), (xbc, dt, A))
+    assert ops.SSD_ROUTES[route] == n + 1
+    want = _grads(run(lambda *a: ref.ssd_chunked_ref(*a, chunk)), (xbc, dt, A))
+    _same_grads(got, want, 1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["deepseek-7b", "mamba2-370m"])
+def test_train_step_loss_and_grads_match_cpu(cuda_device, arch):
+    """A small float32 model (head_dim 64; the reduced SSD sizes) on the
+    card through the kernels against the CPU plain path: loss within 1e-5
+    relative, each grad leaf within 1e-4 of its largest element; the step
+    launches 4L+1 RMSNorm and 2L attention or SSD kernels (forward and
+    the remat recompute)."""
+    from repro_torch.configs import reduced_config
+    from repro_torch.models import Model
+    from repro_torch.train.train_step import loss_and_grads
+    from repro_torch.tree import leaves_with_paths, tree_map
+
+    cfg = reduced_config(arch, head_dim=64)
+    cpu, gpu = Model(cfg, device="cpu"), Model(cfg, device=cuda_device)
+    params = cpu.init(torch.Generator().manual_seed(0))
+    toks = torch.randint(0, cfg.vocab_size, (2, 41), generator=torch.Generator().manual_seed(1),
+                         dtype=torch.int32)
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    ops.reset_launches()
+    lg, _, gg = loss_and_grads(gpu, tree_map(lambda t: t.to(cuda_device), params),
+                               {k: v.to(cuda_device) for k, v in batch.items()})
+    L = cfg.n_layers
+    mixer = "flash_attention" if arch == "deepseek-7b" else "ssd_scan"
+    assert ops.LAUNCHES == {"rmsnorm": 4 * L + 1, "flash_attention": 0, "ssd_scan": 0, mixer: 2 * L}
+    lc, _, gc = loss_and_grads(cpu, params, batch)
+    assert lg.item() == pytest.approx(lc.item(), rel=1e-5)
+    want = dict(leaves_with_paths(gc))
+    for key, g in leaves_with_paths(gg):
+        torch.testing.assert_close(g.cpu(), want[key], atol=1e-4 * want[key].abs().max().item(), rtol=0)
