@@ -34,7 +34,20 @@ Phases (any failure exits non-zero):
                 the card against the CPU, a profiled decode step, and a
                 profiled prefill of the 300-token prompt (device time by
                 kernel, the SSD scan's share).
-  8. train    — main path 3: deepseek-7b at full width, depth cut to 8
+  8. moe      — main path 5: full-width, 48-layer qwen3-moe-30b-a3b in bf16
+                (30.5 G parameters, 128 experts, top-8, qk-norm, 32 query
+                heads on 4 KV heads); ServeEngine(max_len=512, batch_size=4)
+                serves 6 requests of 16 new tokens; every pass launches 193
+                RMSNorm (ln1, ln2, q-norm, k-norm a layer, the final norm)
+                and 48 attention kernels, a prefill's through mma_prefill, a
+                decode step's through decode; each prefill's dropped (token,
+                k) pairs are logged.  Then its prefill/decode consistency
+                (capacity raised so that no pair drops), a small MoE model
+                on the card against the CPU (the same experts and the same
+                dropped pairs, some dropped), a profiled decode step (the
+                expert products against their byte bound) and the
+                calibrated curve.
+  9. train    — main path 3: deepseek-7b at full width, depth cut to 8
                 layers (fp32 AdamW moments for 30 would not fit), bf16,
                 3 steps of make_train_step at batch 4 x seq 512; every step
                 launches 33 RMSNorm and 16 attention kernels (forward and
@@ -147,6 +160,9 @@ def rmsnorm_cases(torch, ops, ref, timer, dev):
         # the training steps' rows: deepseek-7b at batch 4 x 512, mamba2-370m
         # at batch 8 x 512
         ("bfloat16", 2048, 4096), ("bfloat16", 4096, 1024), ("bfloat16", 4096, 2048),
+        # qwen3-moe-30b-a3b's q-norm: a decode step of 4 (4 x 32 heads) and a
+        # 300-token prefill (300 x 32); its d_model 2048 is mamba2-370m's d_inner
+        ("bfloat16", 128, 128), ("bfloat16", 9600, 128),
     ]
     for dtype, rows, D in cases:
         tdt = getattr(torch, dtype)
@@ -201,6 +217,9 @@ def flash_cases(torch, ops, ref, timer, dev):
         ("prefill", 1, 200, 200, 32, 32, 128, "bfloat16", None, None, None),  # longest prompt
         ("decode_gqa", 8, 1, 512, 32, 8, 128, "bfloat16", None, decode_q, decode_kv),
         ("train", 4, 512, 512, 32, 32, 128, "bfloat16", None, None, None),  # deepseek-7b's step
+        # qwen3-moe-30b-a3b's serve run: 8 query heads a KV head
+        ("decode_moe", 4, 1, 512, 32, 4, 128, "bfloat16", None, serve_q, serve_kv),
+        ("prefill_moe", 1, 200, 200, 32, 4, 128, "bfloat16", None, None, None),
     ]
     gen = torch.Generator(device=dev).manual_seed(2)
     out = []
@@ -584,9 +603,12 @@ def _tree_to(tree, device):
     return tree_map(lambda t: t.to(device), tree)
 
 
-def profile_decode(torch, cfg, params, batch: int = 4, steps: int = 5):
+def profile_decode(torch, cfg, params, batch: int = 4, steps: int = 5, bounds=None):
     """Device busy share and time by kernel over decode steps at the
-    serving batch, from torch.profiler."""
+    serving batch, from torch.profiler.  ``bounds`` (MoE): (bytes of the
+    expert weights, bytes of all weights a step reads): the expert
+    products' device time (the kernels under ``aten::bmm``, which only
+    the MoE layer calls) and the step's are set against them."""
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.models import Model
@@ -617,6 +639,16 @@ def profile_decode(torch, cfg, params, batch: int = 4, steps: int = 5):
     for e in ranked[:8] + [e for e in ranked[8:] if "flash" in e.key]:
         log(f"profile {cfg.name}:   {e.self_device_time_total / steps / 1e3:8.4f} ms/step "
             f"{e.count // steps:5d}/step  {e.key[:90]}")
+    if bounds is not None:
+        expert_bytes, step_bytes = bounds
+        bmm = [e for e in prof.key_averages() if e.key == "aten::bmm"]
+        bmm_ms = sum(e.device_time_total for e in bmm) / steps / 1e3
+        t_expert, t_step = (b / HBM_BYTES_PER_S * 1e3 for b in (expert_bytes, step_bytes))
+        log(f"profile {cfg.name}: expert products (aten::bmm, {sum(e.count for e in bmm) // steps}/step) "
+            + (f"{bmm_ms:.4f} ms/step of device time" if bmm_ms else "device time not measured")
+            + f", byte bound {t_expert:.4f} ms ({expert_bytes / 1e9:.3f} GB of expert weights); "
+            f"device busy {busy_us / steps / 1e3:.4f} ms/step against the step's byte bound "
+            f"{t_step:.4f} ms ({step_bytes / 1e9:.3f} GB of weights)")
 
 
 def profile_prefill(torch, np, cfg, params, S: int = 300):
@@ -662,14 +694,167 @@ def calibrate_phase(cfg, params, card):
     engine = ServeEngine(cfg, params, max_len=64, batch_size=128)
     t0 = time.perf_counter()
     curve = calibrate(engine, batch_sizes=(1, 8, 32, 128), steps=24)
-    log(f"calibrate: {card}; deepseek-7b full width bf16, max_len 64, batch sizes "
+    log(f"calibrate: {card}; {cfg.name} full width bf16, max_len 64, batch sizes "
         f"(1, 8, 32, 128), 24 steps each: base {curve.base!r} s, per_req {curve.per_req!r} s "
         f"({time.perf_counter() - t0:.1f} s); step_time(b) ms: "
         + ", ".join(f"{b}: {curve.step_time(b) * 1e3:.3f}" for b in (1, 8, 32, 128)))
 
 
 # --------------------------------------------------------------------------
-# phase 8: training
+# phase 8: MoE
+# --------------------------------------------------------------------------
+
+
+class RouteLog:
+    """While installed, records the ``moe.Routing`` of each MoE routing
+    call of the model: its tensors are kept as they are, so the recording
+    adds no launch and no wait to the run."""
+
+    def __init__(self):
+        from repro_torch.models import moe
+
+        self.moe, self.records = moe, []
+
+    def __enter__(self):
+        self.route = route = self.moe.route
+
+        def recorded(router, cfg, xt):
+            r = route(router, cfg, xt)
+            self.records.append(r)
+            return r
+
+        self.moe.route = recorded
+        return self
+
+    def __exit__(self, *exc):
+        self.moe.route = self.route
+
+
+def moe_weight_bytes(cfg, params, batch: int):
+    """(bytes of the expert weights, bytes of all weights a decode step of
+    ``batch`` rows reads: every leaf once, but of the token table only the
+    rows it looks up)."""
+    from repro_torch.tree import leaves_with_paths
+
+    expert = step = 0
+    for key, t in leaves_with_paths(params):
+        size = t.numel() * t.element_size()
+        if "tokens" in key:
+            size = batch * t.shape[1] * t.element_size()
+        step += size
+        if any(w in key for w in ("w_up", "w_gate", "w_down")):
+            expert += size
+    return expert, step
+
+
+def serve_moe(torch, np, cfg, params, ops, lengths):
+    """serve() with every routing call recorded: each prefill's dropped
+    (token, k) pairs, layer by layer."""
+    n = cfg.n_layers
+    with RouteLog() as rl:
+        launches, routes = serve(
+            torch, np, cfg, params, ops, lengths=lengths,
+            per_pass={"rmsnorm": (4 * n + 1,) * 2, "flash_attention": (n, n), "ssd_scan": (0, 0)},
+            routes={"flash_attention": {"prefill": "mma_prefill", "decode": "decode"}},
+        )
+    # one pass is n routing calls of T tokens each
+    passes = [rl.records[i : i + n] for i in range(0, len(rl.records), n)]
+    tokens = [{r.top_i.shape[0] for r in ps} for ps in passes]
+    assert len(rl.records) % n == 0 and all(len(t) == 1 for t in tokens), tokens
+    tokens = [t.pop() for t in tokens]
+    # the warm-up request (8 tokens, 1 decode step of 1 row) comes first;
+    # then a prefill has T = its prompt's length, a decode step T = 4 rows
+    prefills = [ps for ps, T in zip(passes[2:], tokens[2:]) if T != 4]
+    assert [T for T in tokens[2:] if T != 4] == lengths, tokens
+    for T, ps in zip(lengths, prefills):
+        dropped = [int((~r.keep).sum()) for r in ps]
+        used = sorted(int((r.load > 0).sum()) for r in ps)
+        log(f"serve {cfg.name}: prefill T={T}: capacity {ps[0].capacity} a expert, {T * cfg.top_k} "
+            f"(token, k) pairs a layer; dropped {sum(dropped)} over {n} layers "
+            f"({sum(dropped) / (n * T * cfg.top_k):.4f}), by layer {dropped}; experts chosen "
+            f"by any pair a layer: min {used[0]}, median {used[n // 2]}, max {used[-1]} of "
+            f"{cfg.n_experts}; largest load {max(int(r.load.max()) for r in ps)} pairs")
+    decode_dropped = sum(int((~r.keep).sum()) for ps, T in zip(passes[2:], tokens[2:]) if T == 4
+                         for r in ps)
+    log(f"serve {cfg.name}: decode steps dropped {decode_dropped} pairs (capacity 8, 4 rows)")
+    assert decode_dropped == 0, decode_dropped
+    return launches, routes
+
+
+def small_moe_against_cpu(torch, np, ops):
+    """Reduced qwen3-moe-30b-a3b (head_dim 64, fp32) on the card through
+    the kernels against the same weights on the CPU through the plain
+    versions: a prefill of 3 x 12 tokens and 4 decode steps at per-row
+    positions, at capacity_factor 0.5, where the prefill drops pairs.  The
+    logits within 1e-4, and every routing call picks the same experts and
+    drops the same pairs on both."""
+    import dataclasses
+
+    from repro_torch.configs import reduced_config
+    from repro_torch.models import Model
+
+    tol = 1e-4
+    cfg = dataclasses.replace(reduced_config("qwen3-moe-30b-a3b", head_dim=64), capacity_factor=0.5)
+    cpu, gpu = Model(cfg, device="cpu"), Model(cfg)
+    p_cpu = cpu.init(torch.Generator().manual_seed(12))
+    p_gpu = _tree_to(p_cpu, gpu.device)
+    toks = torch.from_numpy(
+        np.random.default_rng(13).integers(0, cfg.vocab_size, (3, 20)).astype(np.int32)
+    )
+
+    def run(model, params):
+        dev = model.device
+        cache = model.init_cache(3, 32)
+        with RouteLog() as rl:
+            outs = [model.prefill(params, {"tokens": toks[:, :12].to(dev)}, cache)[0].cpu()]
+            for i in range(4):
+                pos = torch.tensor([12 + i, 13 + i, 14 + i], dtype=torch.int32, device=dev)
+                outs.append(model.decode_step(params, cache, toks[:, 12 + i : 13 + i].to(dev), pos)[0].cpu())
+        return outs, [(r.capacity, r.top_i.cpu(), r.keep.cpu()) for r in rl.records]
+
+    n0 = dict(ops.LAUNCHES)
+    out_gpu, r_gpu = run(gpu, p_gpu)
+    launches = {k: ops.LAUNCHES[k] - n0[k] for k in n0}
+    out_cpu, r_cpu = run(cpu, p_cpu)
+    worst = max((a - b).abs().max().item() for a, b in zip(out_gpu, out_cpu))
+    same = len(r_gpu) == len(r_cpu) == 5 * cfg.n_layers and all(
+        a[0] == b[0] and torch.equal(a[1], b[1]) and torch.equal(a[2], b[2])
+        for a, b in zip(r_gpu, r_cpu))
+    dropped = sum(int((~keep).sum()) for *_, keep in r_gpu)
+    log(f"small moe model: cuda kernels vs cpu plain path, prefill 3 x 12 + 4 decode steps, "
+        f"capacity_factor 0.5: max abs logit err {worst:.3e} (tol {tol}); the same experts and "
+        f"dropped pairs in all {len(r_gpu)} routing calls: {same}; {dropped} pairs dropped "
+        f"(prefill capacity {r_gpu[0][0]}); launches {launches}")
+    L = cfg.n_layers
+    assert launches == {"rmsnorm": 5 * (4 * L + 1), "flash_attention": 5 * L, "ssd_scan": 0}, launches
+    assert same and dropped > 0 and worst <= tol, (same, dropped, worst)
+
+
+def moe_phase(torch, np, ops, dev, card):
+    """Main path 5 and its checks.  Returns its launches and flash
+    launches by route."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import Model
+
+    cfg = get_config("qwen3-moe-30b-a3b")
+    params = init_params(torch, Model, cfg, dev)
+    kv = 2 * cfg.n_layers * cfg.n_kv_heads * cfg.head_dim * 2
+    log(f"init {cfg.name}: KV cache {kv / 1024:.0f} KiB a token, "
+        f"{4 * 512 * kv / 2**20:.0f} MiB at batch 4 x 512")
+    launches, routes = serve_moe(torch, np, cfg, params, ops, lengths=[200, 5, 83, 161, 44, 122])
+    # C >= T K for every prompt: a prefill drops no pair, as decode never does
+    prefill_decode_consistency(
+        torch, np, dataclasses.replace(cfg, capacity_factor=float(cfg.n_experts)), params)
+    small_moe_against_cpu(torch, np, ops)
+    profile_decode(torch, cfg, params, bounds=moe_weight_bytes(cfg, params, 4))
+    calibrate_phase(cfg, params, card)
+    return launches, routes["flash_attention"]
+
+
+# --------------------------------------------------------------------------
+# phase 9: training
 # --------------------------------------------------------------------------
 
 
@@ -1090,7 +1275,12 @@ def main(argv=None) -> int:
     del params
     torch.cuda.empty_cache()
 
-    # 8. training (main paths 3 and 4), and its checks
+    # 8. serve qwen3-moe-30b-a3b at full width (main path 5), and its checks
+    path_launches["qwen3-moe-30b-a3b"], routes = moe_phase(torch, np, ops, dev, card)
+    flash_routes = {r: c + routes[r] for r, c in flash_routes.items()}
+    torch.cuda.empty_cache()
+
+    # 9. training (main paths 3 and 4), and its checks
     path_launches["deepseek-7b/train"], routes = train_deepseek(torch, ops, dev)
     flash_routes = {r: c + routes[r] for r, c in flash_routes.items()}
     torch.cuda.empty_cache()
@@ -1135,11 +1325,13 @@ def main(argv=None) -> int:
 def init_params(torch, Model, cfg, dev):
     from repro_torch.models.model import n_params
 
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     params = Model(cfg).init(torch.Generator(device=dev).manual_seed(0))
     torch.cuda.synchronize()
     log(f"init: {cfg.name} {cfg.n_layers} layers, {n_params(params)} params in {cfg.dtype}, "
-        f"{time.perf_counter() - t0:.1f} s")
+        f"{time.perf_counter() - t0:.1f} s; memory {torch.cuda.memory_allocated() / 2**30:.2f} GiB, "
+        f"peak {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     return params
 
 

@@ -1,8 +1,9 @@
 """Registry of the architectures the port serves so far.
 
-``deepseek-7b`` (dense) and ``mamba2-370m`` (ssm) are registered; the
-other families' configs come with the slices that port their layers
-(ROADMAP.md, queue A items 7-8).
+``deepseek-7b`` (dense), ``mamba2-370m`` (ssm), ``qwen3-moe-30b-a3b``
+and ``moonshot-v1-16b-a3b`` (moe) are registered; the other families'
+configs come with the slices that port their layers (ROADMAP.md, queue A
+item 8).
 """
 from __future__ import annotations
 

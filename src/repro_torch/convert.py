@@ -4,7 +4,9 @@ tensors to and from numpy with bfloat16 kept bit for bit.
 ``params_from_jax`` takes the JAX ``Model.init`` tree with every leaf
 already converted to numpy (the caller does that step; this module
 imports no JAX) and returns the same nested dicts of CPU torch tensors,
-checked leaf by leaf against the port's ``param_spec``.
+checked leaf by leaf against the shapes and dtypes of the port's
+``Model.param_specs`` (an fp32 leaf, such as the MoE router, stays fp32
+in a bf16 config).
 
 numpy has no bfloat16 of its own.  The JAX package's arrays carry
 ml_dtypes' ``bfloat16``; ``np.savez`` writes those as the raw two-byte
@@ -20,7 +22,7 @@ import numpy as np
 import torch
 
 from .configs.base import ArchConfig
-from .models.model import param_spec
+from .models.model import Model
 
 
 _BF16_BITS = np.dtype("V2")  # how np.savez stores a bfloat16 array
@@ -49,7 +51,7 @@ def params_from_jax(tree: Dict[str, Any], cfg: ArchConfig) -> Dict[str, Any]:
     """Port params from a JAX param tree of numpy arrays, for ``cfg``.
 
     Raises ``ValueError`` on a missing or extra key or a leaf whose shape
-    differs from what the port builds for ``cfg``.
+    or dtype differs from what the port builds for ``cfg``.
     """
 
     def walk(node: Any, spec: Any, path: str) -> Any:
@@ -58,10 +60,11 @@ def params_from_jax(tree: Dict[str, Any], cfg: ArchConfig) -> Dict[str, Any]:
                 got = sorted(node) if isinstance(node, dict) else type(node).__name__
                 raise ValueError(f"{path or 'params'}: keys {got}, expected {sorted(spec)}")
             return {k: walk(node[k], spec[k], f"{path}/{k}") for k in spec}
-        shape, _ = spec
         t = _to_tensor(np.asarray(node))
-        if tuple(t.shape) != tuple(shape):
-            raise ValueError(f"{path}: shape {tuple(t.shape)}, expected {tuple(shape)}")
+        if t.shape != spec.shape:
+            raise ValueError(f"{path}: shape {tuple(t.shape)}, expected {tuple(spec.shape)}")
+        if t.dtype != spec.dtype:
+            raise ValueError(f"{path}: dtype {t.dtype}, expected {spec.dtype}")
         return t
 
-    return walk(tree, param_spec(cfg), "")
+    return walk(tree, Model(cfg, device="cpu").param_specs(), "")

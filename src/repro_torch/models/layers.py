@@ -56,6 +56,12 @@ def init_from_spec(
     * a float std: a seeded normal draw in ``dtype``;
     * None: fp32 ones (norm scales, Mamba's D skip);
     * "zeros": zeros in ``dtype`` (the conv bias);
+    * ("normal_fp32", std): a seeded normal draw kept in fp32 whatever
+      ``dtype`` is (the MoE router);
+    * ("normal_by_slice", std): a seeded normal draw in ``dtype``, taken one
+      leading slice at a time, so the fp32 scratch is one slice, not the
+      leaf (the stacked MoE expert weights: a full-width leaf in fp32 would
+      not fit beside the model);
     * ("log_uniform", lo, hi): fp32 ``log(U[lo, hi])`` (Mamba's A_log);
     * ("softplus_inv_uniform", lo, hi): fp32 ``log(expm1(U[lo, hi]))``, the
       inverse softplus of a uniform draw (Mamba's dt bias).
@@ -68,6 +74,13 @@ def init_from_spec(
         return torch.ones(shape, dtype=torch.float32, device=dev)
     if init == "zeros":
         return torch.zeros(shape, dtype=dtype, device=dev)
+    if isinstance(init, tuple) and init[0] == "normal_fp32":
+        return normal(gen, shape, init[1], torch.float32, dev)
+    if isinstance(init, tuple) and init[0] == "normal_by_slice":
+        out = torch.empty(shape, dtype=dtype, device=dev)
+        for part in out:
+            part.copy_(normal(gen, shape[1:], init[1], dtype, dev))
+        return out
     if isinstance(init, tuple):
         kind, lo, hi = init
         u = torch.rand(shape, generator=gen, device=dev, dtype=torch.float32)

@@ -1,13 +1,13 @@
-"""Model facade of the port: init / loss / prefill / decode for the dense
-and ssm families.
+"""Model facade of the port: init / loss / prefill / decode for the dense,
+ssm and moe families.
 
 The JAX package scans over stacked blocks (``repro/models/model.py``); the
 port keeps the stacked ``[n_blocks, ...]`` parameter and cache leaves and
 loops over the block index, and within a block over the sub-layers of
-``cfg.layer_kinds()`` (mixer ``attn`` or ``mamba``, ff ``dense`` or
-``none``).  ``loss`` recomputes every block in the backward pass
+``cfg.layer_kinds()`` (mixer ``attn`` or ``mamba``, ff ``dense``, ``moe``
+or ``none``).  ``loss`` recomputes every block in the backward pass
 (``torch.utils.checkpoint``, the JAX package's ``jax.checkpoint`` with
-``nothing_saveable``).  MoE and the hybrid, vlm and audio families raise
+``nothing_saveable``).  The hybrid, vlm and audio families raise
 ``NotImplementedError`` naming the ROADMAP.md item that will port them.
 """
 from __future__ import annotations
@@ -20,13 +20,13 @@ from torch.utils.checkpoint import checkpoint
 from ..configs.base import ArchConfig
 from . import layers as L
 from . import mamba as M
+from . import moe as X
 
 Params = Dict[str, Any]
 Spec = Dict[str, Any]
 
 _NOT_PORTED = {
-    "moe": "ROADMAP.md queue A item 7 (MoE)",
-    "hybrid": "ROADMAP.md queue A items 7-8 (MoE, hybrid)",
+    "hybrid": "ROADMAP.md queue A item 8 (hybrid)",
     "vlm": "ROADMAP.md queue A item 8 (remaining families)",
     "audio": "ROADMAP.md queue A item 8 (remaining families)",
 }
@@ -79,7 +79,9 @@ def _apply_sub(
     cache: Optional[Params],
     cache_index: L.CacheIndex,
     decode: bool,
-) -> torch.Tensor:
+) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """One sub-layer; returns (h, aux), aux the MoE load-balance term of
+    an ``moe`` ff and None for the others."""
     y = L.rms_norm(h, sub["ln1"])
     if mixer == "attn":
         # prefill attends over its own k/v; decode over the cache
@@ -93,9 +95,12 @@ def _apply_sub(
         y = M.apply_mamba(sub["mamba"], cfg, y, cache)
     h = h + y
     if ff == "none":
-        return h
+        return h, None
     y = L.rms_norm(h, sub["ln2"])
-    return h + L.apply_mlp(sub["mlp"], cfg, y)
+    if ff == "moe":
+        y, aux = X.apply_moe(sub["moe"], cfg, y)
+        return h + y, aux
+    return h + L.apply_mlp(sub["mlp"], cfg, y), None
 
 
 def param_spec(cfg: ArchConfig) -> Spec:
@@ -119,7 +124,8 @@ def param_spec(cfg: ArchConfig) -> Spec:
             sub["ln2"] = norm
             sub["mlp"] = stacked(L.mlp_spec(cfg))
         elif ff == "moe":
-            raise NotImplementedError(f"{cfg.name}: MoE layers are {_NOT_PORTED['moe']}")
+            sub["ln2"] = norm
+            sub["moe"] = stacked(X.moe_spec(cfg))
         blocks[f"sub{i}"] = sub
     return {
         "embed": L.embedding_spec(cfg),
@@ -166,14 +172,17 @@ class Model:
         block_cache: Optional[Params],
         cache_index: L.CacheIndex,
         decode: bool,
-    ) -> torch.Tensor:
+    ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+        aux_total = None
         for j, (mixer, ff) in enumerate(self.kinds):
-            h = _apply_sub(
+            h, aux = _apply_sub(
                 block[f"sub{j}"], self.cfg, mixer, ff, h, q_pos,
                 block_cache[f"sub{j}"] if block_cache else None,
                 cache_index, decode,
             )
-        return h
+            if aux is not None:
+                aux_total = aux if aux_total is None else aux_total + aux
+        return h, aux_total
 
     def _backbone(
         self,
@@ -184,23 +193,27 @@ class Model:
         cache_index: L.CacheIndex = None,
         decode: bool = False,
         remat: bool = False,
-    ) -> torch.Tensor:
-        """The blocks in order.  ``remat``: each block's activations are
-        recomputed in the backward pass instead of kept (training, no
-        cache); its kernels then launch twice a step."""
+    ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+        """The blocks in order; returns (h, the blocks' summed MoE aux
+        term, None without MoE layers).  ``remat``: each block's
+        activations are recomputed in the backward pass instead of kept
+        (training, no cache); its kernels then launch twice a step."""
         if remat and cache is not None:
             raise ValueError("remat recomputes blocks; it takes no cache")
+        aux_total = None
         for i, block in enumerate(_unstack(params["blocks"], self.n_blocks)):
             if remat:
                 # no block draws random numbers: no RNG state to replay
-                h = checkpoint(
+                h, aux = checkpoint(
                     self._block, block, h, q_pos, None, None, False,
                     use_reentrant=False, preserve_rng_state=False,
                 )
             else:
                 block_cache = _index(cache, i) if cache is not None else None
-                h = self._block(block, h, q_pos, block_cache, cache_index, decode)
-        return h
+                h, aux = self._block(block, h, q_pos, block_cache, cache_index, decode)
+            if aux is not None:
+                aux_total = aux if aux_total is None else aux_total + aux
+        return h, aux_total
 
     # ---- public API -----------------------------------------------------
 
@@ -210,16 +223,17 @@ class Model:
         """Next-token cross-entropy of ``batch["tokens"] [B,S]`` against
         ``batch["labels"] [B,S]`` (-1 ignored), every block recomputed in
         the backward pass.  Returns (loss, {"xent", "aux", "n_tokens"}),
-        fp32 scalars; ``aux`` (MoE's load-balance term, weight 0.01) is 0
-        for the dense and ssm families."""
+        fp32 scalars; ``aux`` (MoE's load-balance term summed over the
+        blocks, weight 0.01) is 0 for the dense and ssm families."""
         tokens = batch["tokens"]
         h = L.embed_tokens(params["embed"], tokens)
         q_pos = torch.arange(tokens.shape[1], dtype=torch.int32, device=h.device)
-        h = self._backbone(params, h, q_pos, remat=True)
+        h, aux = self._backbone(params, h, q_pos, remat=True)
         h = L.rms_norm(h, params["final_norm"])
         logits = L.unembed(params["embed"], self.cfg, h)
         xent, n_tok = L.cross_entropy(logits, batch["labels"])
-        aux = torch.zeros((), dtype=torch.float32, device=h.device)
+        if aux is None:
+            aux = torch.zeros((), dtype=torch.float32, device=h.device)
         loss = xent + 0.01 * aux
         return loss, {"xent": xent, "aux": aux, "n_tokens": n_tok}
 
@@ -255,7 +269,7 @@ class Model:
         h = L.embed_tokens(params["embed"], tokens)
         S = tokens.shape[1]
         q_pos = torch.arange(S, dtype=torch.int32, device=h.device)
-        h = self._backbone(params, h, q_pos, cache=cache, cache_index=0)
+        h, _ = self._backbone(params, h, q_pos, cache=cache, cache_index=0)
         h = L.rms_norm(h, params["final_norm"])
         return L.unembed(params["embed"], self.cfg, h[:, -1:, :]), cache
 
@@ -274,7 +288,7 @@ class Model:
         h = L.embed_tokens(params["embed"], tokens)
         pos = torch.as_tensor(pos, dtype=torch.int32, device=h.device)
         q_pos = pos[None] if pos.ndim == 0 else pos[:, None]
-        h = self._backbone(params, h, q_pos, cache=cache, cache_index=pos, decode=True)
+        h, _ = self._backbone(params, h, q_pos, cache=cache, cache_index=pos, decode=True)
         h = L.rms_norm(h, params["final_norm"])
         return L.unembed(params["embed"], self.cfg, h), cache
 

@@ -40,7 +40,22 @@ def test_mamba2_370m_config_matches(getter):
         assert (cfg.vocab_size, cfg.padded_vocab, cfg.tie_embeddings) == (50280, 50432, True)
 
 
+@pytest.mark.parametrize("getter", ["get_config", "reduced_config"])
+@pytest.mark.parametrize("arch", ["qwen3-moe-30b-a3b", "moonshot-v1-16b-a3b"])
+def test_moe_configs_match(arch, getter):
+    cfg = _same_config(arch, getter)
+    if getter == "get_config" and arch == "qwen3-moe-30b-a3b":  # the published widths
+        assert (cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim) == (48, 2048, 32, 4, 128)
+        assert (cfg.d_ff, cfg.n_experts, cfg.top_k, cfg.capacity_factor) == (768, 128, 8, 1.25)
+        assert (cfg.vocab_size, cfg.padded_vocab, cfg.qk_norm, cfg.rope_theta) == (151936, 152064, True, 1e6)
+    elif getter == "get_config":
+        assert (cfg.n_heads, cfg.n_kv_heads, cfg.d_ff, cfg.n_experts, cfg.top_k) == (16, 16, 1408, 64, 6)
+        assert (cfg.qk_norm, cfg.capacity_factor) == (False, 1.25)
+
+
 def test_only_ported_archs_registered():
-    assert tcfg.list_archs() == ["deepseek-7b", "mamba2-370m"]
+    assert tcfg.list_archs() == [
+        "deepseek-7b", "mamba2-370m", "moonshot-v1-16b-a3b", "qwen3-moe-30b-a3b"
+    ]
     with pytest.raises(KeyError, match="unknown arch"):
         tcfg.get_config("qwen3-32b")

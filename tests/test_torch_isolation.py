@@ -34,11 +34,13 @@ def test_port_modules_load_no_jax_and_no_repro():
     )
     assert out.returncode == 0, out.stderr
     first, names = out.stdout.splitlines()[:2]
-    assert int(first.split()[0]) >= 26  # every module of the slices so far was imported
-    assert {  # the training slice
+    assert int(first.split()[0]) >= 29  # every module of the slices so far was imported
+    assert {  # the training slice, then the MoE slice
         "repro_torch.tree", "repro_torch.train.optimizer", "repro_torch.train.train_step",
         "repro_torch.train.data", "repro_torch.train.fault_tolerance",
         "repro_torch.train.checkpoint", "repro_torch.launch.train",
+        "repro_torch.models.moe", "repro_torch.configs.qwen3_moe_30b_a3b",
+        "repro_torch.configs.moonshot_v1_16b_a3b",
     } <= set(names.split())
 
 

@@ -224,6 +224,72 @@ def test_flash_routes_by_shape_and_dtype(cuda_device):
             r: int(r == route) for r in after}, (Sq, dtype)
 
 
+# qwen3-moe-30b-a3b's serve path: qk-norm over rows of 128, and attention
+# with 8 query heads a KV head (H = 32, G = 4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,S,A", [(4, 1, 32), (4, 1, 4), (1, 300, 32), (1, 300, 4)])
+def test_rmsnorm_qk_norm_shapes(cuda_device, B, S, A):
+    """q- and k-norm as the attention layer calls them: a [B,S,A,128] bf16
+    projection over its last axis (q: 128 rows at a decode step of 4, 9,600
+    in a 300-token prefill; k: 16 and 1,200), on the row kernel."""
+    gen = torch.Generator(device=cuda_device).manual_seed(B * S + A)
+    x = torch.randn(B, S, A, 128, generator=gen, device=cuda_device).bfloat16()
+    s = torch.randn(128, generator=gen, device=cuda_device)
+    n = ops.LAUNCHES["rmsnorm"]
+    out = ops.rmsnorm(x, s)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["rmsnorm"] == n + 1 and out.shape == x.shape
+    torch.testing.assert_close(out.float(), ref.rmsnorm_ref(x, s).float(), atol=2e-2, rtol=2e-2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_decode_route_eight_heads_a_group(cuda_device, dtype):
+    """The decode route at the serve batch (B = 4, a 512-slot cache) with
+    per-row positions and Hg = 8, the most query heads its block holds."""
+    B, T, H, G, K = 4, 512, 32, 4, 128
+    gen = torch.Generator(device=cuda_device).manual_seed(11)
+    q = torch.randn(B, 1, H, K, generator=gen, device=cuda_device).to(_TDT[dtype])
+    k, v = _kv(B, T, G, K, dtype, cuda_device, seed=12)
+    ar = torch.arange(T, dtype=torch.int32, device=cuda_device)
+    kpos = torch.where(ar < 216, ar, -1)
+    qpos = torch.tensor([[215], [20], [98], [176]], dtype=torch.int32, device=cuda_device)
+    n = ops.FLASH_ROUTES["decode"]
+    out = ops.flash_attention(q, k, v, qpos, kpos, True, None)
+    torch.cuda.synchronize()
+    assert ops.FLASH_ROUTES["decode"] == n + 1
+    want = ref.flash_attention_ref(q, k, v, qpos, kpos, True, None)
+    tol = 2e-5 if dtype == "float32" else 2e-2
+    assert bool(torch.isfinite(out).all())
+    torch.testing.assert_close(out.float(), want.float(), atol=tol, rtol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("Sq", [5, 44, 83, 200, 300])
+def test_flash_mma_prefill_eight_heads_a_group(cuda_device, Sq):
+    """The bf16 prefill route at the serve run's prompt lengths with
+    H = 32, G = 4; also against SDPA with enable_gqa."""
+    import torch.nn.functional as F
+
+    B, H, G, K = 1, 32, 4, 128
+    gen = torch.Generator(device=cuda_device).manual_seed(Sq + 7)
+    q = torch.randn(B, Sq, H, K, generator=gen, device=cuda_device).bfloat16()
+    k, v = _kv(B, Sq, G, K, "bfloat16", cuda_device, seed=Sq + 8)
+    pos = torch.arange(Sq, dtype=torch.int32, device=cuda_device)
+    n = ops.FLASH_ROUTES["mma_prefill"]
+    out = ops.flash_attention(q, k, v, pos, pos, True, None)
+    torch.cuda.synchronize()
+    assert ops.FLASH_ROUTES["mma_prefill"] == n + 1
+    want = ref.flash_attention_ref(q, k, v, pos, pos, True, None)
+    torch.testing.assert_close(out.float(), want.float(), atol=2e-2, rtol=2e-2)
+    lib = F.scaled_dot_product_attention(
+        *(t.transpose(1, 2) for t in (q, k, v)), is_causal=True, enable_gqa=True
+    ).transpose(1, 2)
+    torch.testing.assert_close(out.float(), lib.float(), atol=2e-2, rtol=2e-2)
+
+
 def _ssd_inputs(B, S, H, P, N, dtype, device, seed=0):
     gen = torch.Generator(device=device).manual_seed(seed)
     x = torch.randn(B, S, H, P, generator=gen, device=device).to(_TDT[dtype])

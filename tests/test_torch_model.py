@@ -102,9 +102,11 @@ def test_entry_points_refuse_to_fall_back_to_cpu():
 
 
 def test_unported_families_name_their_roadmap_item():
-    moe = dataclasses.replace(CFG, family="moe", n_experts=4, top_k=2)
-    with pytest.raises(NotImplementedError, match="queue A item 7"):
-        TModel(moe, device="cpu")
+    hybrid = dataclasses.replace(
+        CFG, family="hybrid", n_experts=4, top_k=2, attn_period=2, moe_period=2
+    )
+    with pytest.raises(NotImplementedError, match="queue A item 8"):
+        TModel(hybrid, device="cpu")
 
 
 def test_dense_init_draws_in_spec_order():
