@@ -12,7 +12,11 @@ Phases (any failure exits non-zero):
                 shapes (serving and training), with times (kernel, plain,
                 one PyTorch library call as a yardstick where one exists)
                 and the bound; the timer's floor (the smallest RMSNorm
-                launch); SSD scans must give the same bits twice.
+                launch); SSD scans must give the same bits twice.  Flash
+                outputs are also held row by row (relative L2 of each
+                query row <= 1e-2 in bf16, 1e-4 in fp32), and the new
+                cases show that planted faults (a wrong mask, window or
+                scale, the ring's wrapped slots dropped) break that bound.
   4. serve    — main path 1: full-width, 30-layer deepseek-7b in bf16 from
                 a seeded generator; ServeEngine(max_len=512, batch_size=4)
                 serves 6 requests of 16 new tokens; every forward pass must
@@ -58,6 +62,24 @@ Phases (any failure exits non-zero):
                 grad norms, the step-0 loss near its expected value; small
                 models trained on the card against the CPU; a failed and
                 resumed train_loop against a straight run.
+ 10. families — main path 6: full-width, 32-layer llava-next-mistral-7b
+                in bf16: a prefill of 2 rows of 1,152 image embeddings and
+                200 text tokens (1,352 rows each), 16 decode steps; the
+                last step against a prefill of the whole sequence.  Main
+                path 7: full-width, 48-layer hubert-xlarge (head_dim 80,
+                non-causal): a prefill over 8 x 500 frames, then 3 train
+                steps at that batch on masked-frame labels; a prefill
+                through the kernels against the plain versions.  Main path
+                8: full-width, 24-layer h2o-danube-3-4b (head_dim 120,
+                window 4096): 8,192 tokens prefilled into a 4,096-slot
+                ring, 16 decode steps across its wrap, each against a
+                cache-free forward.  Every pass's launches are counted by
+                route, head dim and mask (ops.FLASH_SHAPES), and each path
+                is profiled.  The hybrid jamba-1.5-large-398b (398 G
+                parameters, more than one card holds) runs cut to its
+                reduced config at head_dim 64 in fp32: prefill and decode
+                on the card against the CPU (the same routing), then
+                ServeEngine, its tokens against the CPU engine's.
 Then one line {"kernels": [...]} and, last, {"ok": true, "device": {...}}.
 
     python3 chip_smoke.py --only rmsnorm,ssd,prefill_profile --src DIR
@@ -163,6 +185,9 @@ def rmsnorm_cases(torch, ops, ref, timer, dev):
         # qwen3-moe-30b-a3b's q-norm: a decode step of 4 (4 x 32 heads) and a
         # 300-token prefill (300 x 32); its d_model 2048 is mamba2-370m's d_inner
         ("bfloat16", 128, 128), ("bfloat16", 9600, 128),
+        # the general kernel's widths: hubert-xlarge's prefill and train step
+        # (8 x 500 frames of 1280), h2o-danube-3-4b's 8192-token prefill (3840)
+        ("bfloat16", 4000, 1280), ("bfloat16", 8192, 3840),
     ]
     for dtype, rows, D in cases:
         tdt = getattr(torch, dtype)
@@ -188,6 +213,41 @@ def rmsnorm_cases(torch, ops, ref, timer, dev):
     log(f"timer floor: {out[0]['ms']!r} ms, the median time of the smallest RMSNorm launch "
         f"({out[0]['case']}, bound {out[0]['bound_ms']!r} ms)")
     return out
+
+
+def row_rel_l2(got, want) -> float:
+    """The largest relative L2 error of a query row (over heads and dims)
+    of attention outputs ``[B,Sq,H,K]``."""
+    d = (got.float() - want.float()).flatten(2).norm(dim=-1)
+    return (d / want.float().flatten(2).norm(dim=-1)).max().item()
+
+
+def _scaled_q(q, K):
+    """q such that the reference's K**-0.5 acts as 128**-0.5: the scale of
+    a kernel that used its padded width in place of the true head dim."""
+    return (q.float() * (K / 128) ** 0.5).to(q.dtype)
+
+
+# Faults a kernel could plant in the new flash cases, as arguments
+# (q, q_pos, kv_pos, causal, window) of the plain version; the row check of
+# each case must tell every one of them from the sound kernel.
+PLANTED_FAULTS = {
+    "audio_prefill": lambda q, qp, kp, w: {
+        "causal mask": (q, qp, kp, True, w),
+        "scale 128^-0.5": (_scaled_q(q, 80), qp, kp, False, w),
+    },
+    "swa_prefill": lambda q, qp, kp, w: {
+        "no window": (q, qp, kp, True, None),
+        "window - 1": (q, qp, kp, True, w - 1),
+        "window + 1": (q, qp, kp, True, w + 1),
+        "scale 128^-0.5": (_scaled_q(q, 120), qp, kp, True, w),
+    },
+    "swa_decode_wrapped": lambda q, qp, kp, w: {
+        # the 16 slots written after the ring wrapped (positions past 8191)
+        "wrapped slots dropped": (q, qp, kp.masked_fill(kp >= 8192, -1), True, w),
+        "scale 128^-0.5": (_scaled_q(q, 120), qp, kp, True, w),
+    },
+}
 
 
 def flash_cases(torch, ops, ref, timer, dev):
@@ -221,9 +281,24 @@ def flash_cases(torch, ops, ref, timer, dev):
         ("decode_moe", 4, 1, 512, 32, 4, 128, "bfloat16", None, serve_q, serve_kv),
         ("prefill_moe", 1, 200, 200, 32, 4, 128, "bfloat16", None, None, None),
     ]
+    cases = [c + (True,) for c in cases]  # all causal
+    # h2o-danube-3-4b's decode after 16 tokens wrapped its 4096-slot ring
+    ring = torch.arange(4096, **i32)
+    ring_kv = torch.where(ring < 16, ring + 8192, ring + 4096)  # 8192..8207, then 4112..8191
+    cases += [  # name, B, Sq, T, H, G, K, dtype, window, q_pos, kv_pos, causal
+        # the vlm, audio and sliding-window paths' own calls
+        ("vlm_prefill", 2, 1352, 1352, 32, 8, 128, "bfloat16", None, None, None, True),
+        ("audio_prefill", 8, 500, 500, 16, 16, 80, "bfloat16", None, None, None, False),
+        ("swa_prefill", 1, 8192, 8192, 32, 8, 120, "bfloat16", 4096, None, None, True),
+        ("swa_decode_wrapped", 1, 1, 4096, 32, 8, 120, "bfloat16", 4096,
+         torch.tensor([8207], **i32), ring_kv, True),
+        # granite-34b's MQA: 48 query heads on one KV head
+        ("mqa_decode", 4, 1, 512, 48, 1, 128, "bfloat16", None, serve_q, serve_kv, True),
+        ("mqa_prefill", 1, 200, 200, 48, 1, 128, "bfloat16", None, None, None, True),
+    ]
     gen = torch.Generator(device=dev).manual_seed(2)
     out = []
-    for name, B, Sq, T, H, G, K, dtype, window, qpos, kvpos in cases:
+    for name, B, Sq, T, H, G, K, dtype, window, qpos, kvpos, causal in cases:
         tdt = getattr(torch, dtype)
         q = torch.randn(B, Sq, H, K, generator=gen, device=dev).to(tdt)
         k = torch.randn(B, T, G, K, generator=gen, device=dev).to(tdt)
@@ -231,8 +306,8 @@ def flash_cases(torch, ops, ref, timer, dev):
         if qpos is None:
             qpos = torch.arange(T - Sq, T, **i32)
             kvpos = torch.arange(T, **i32)
-        got = ops.flash_attention(q, k, v, qpos, kvpos, True, window)
-        want = ref.flash_attention_ref(q, k, v, qpos, kvpos, True, window)
+        got = ops.flash_attention(q, k, v, qpos, kvpos, causal, window)
+        want = ref.flash_attention_ref(q, k, v, qpos, kvpos, causal, window)
         torch.cuda.synchronize()
         tol = 2e-5 if dtype == "float32" else 2e-2
         err = (got.float() - want.float()).abs().max().item()
@@ -242,8 +317,18 @@ def flash_cases(torch, ops, ref, timer, dev):
         if name == "fully_masked":  # -1e30 semantics: the mean of v, not NaN
             mean_v = v.float().mean(1).repeat_interleave(H // G, dim=1)[:, None]
             ok = ok and torch.allclose(got.float(), mean_v, atol=tol, rtol=tol)
+        # each query row at its own scale: a row that averages thousands of
+        # keys has outputs near 0.02, far below the absolute tolerance
+        rel_tol = 1e-4 if dtype == "float32" else 1e-2
+        rel = row_rel_l2(got, want)
+        ok = ok and rel <= rel_tol
+        faults = {}
+        if name in PLANTED_FAULTS:  # the check must catch each of these
+            for fault, (fq, fqp, fkp, fc, fw) in PLANTED_FAULTS[name](q, qpos, kvpos, window).items():
+                faults[fault] = row_rel_l2(ref.flash_attention_ref(fq, k, v, fqp, fkp, fc, fw), want)
+            ok = ok and min(faults.values()) > rel_tol
 
-        mask = ref.attention_mask(qpos, kvpos, True, window)  # [Sq,T] or [B,Sq,T]
+        mask = ref.attention_mask(qpos, kvpos, causal, window)  # [Sq,T] or [B,Sq,T]
         # the work this data needs: visible pairs, and every key for a row
         # that sees none (it averages v over all T keys)
         mask_b = mask.expand(B, Sq, T)
@@ -261,14 +346,16 @@ def flash_cases(torch, ops, ref, timer, dev):
             gqa = {"enable_gqa": True} if H != G else {}
             lib_ms = timer.ms(lambda: F.scaled_dot_product_attention(
                 qt, kt, vt, attn_mask=attn_mask, **gqa))
+        del want
         out.append(dict(
             kernel="flash_attention",
             case=f"{name} {dtype} B={B} Sq={Sq} T={T} H={H} G={G} K={K}"
-                 + (f" window={window}" if window else ""),
+                 + (f" window={window}" if window else "") + ("" if causal else " non-causal"),
             route=ops._flash_route(Sq, tdt),
-            max_abs_err=err, tol=tol, ok=ok,
-            ms=timer.ms(lambda: ops.flash_attention(q, k, v, qpos, kvpos, True, window)),
-            plain_ms=timer.ms(lambda: ref.flash_attention_ref(q, k, v, qpos, kvpos, True, window)),
+            max_abs_err=err, tol=tol, row_rel_l2=rel, rel_tol=rel_tol,
+            **({"planted_fault_row_rel_l2": faults} if faults else {}), ok=ok,
+            ms=timer.ms(lambda: ops.flash_attention(q, k, v, qpos, kvpos, causal, window)),
+            plain_ms=timer.ms(lambda: ref.flash_attention_ref(q, k, v, qpos, kvpos, causal, window)),
             library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by,
         ))
     return out
@@ -363,7 +450,7 @@ def serve(torch, np, cfg, params, ops, lengths, per_pass, routes):
     after.  ``per_pass[kernel] = (per prefill, per decode step)``: the
     launches each forward pass must make; ``routes[kernel][kind]``: the
     route all of a prefill's or decode step's launches of that kernel must
-    take.  Returns (launches, launches by route of each routed kernel)."""
+    take.  Returns the run's launches (``_launch_counts``)."""
     from repro_torch.serve.engine import Request, ServeEngine
 
     by_route = {"flash_attention": ops.FLASH_ROUTES, "ssd_scan": ops.SSD_ROUTES}
@@ -412,6 +499,7 @@ def serve(torch, np, cfg, params, ops, lengths, per_pass, routes):
     wall = time.perf_counter() - t0
     launches = dict(ops.LAUNCHES)
     route_counts = {k: dict(v) for k, v in by_route.items()}
+    run_counts = _launch_counts(ops)
 
     n_prefill = len(engine.call_seconds["prefill"])
     n_decode = len(engine.call_seconds["decode"])
@@ -437,7 +525,7 @@ def serve(torch, np, cfg, params, ops, lengths, per_pass, routes):
         f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     log(f"serve {cfg.name}: launches {launches} over {n_prefill} prefills + {n_decode} decode "
         f"steps; per pass (prefill, decode) {per_pass}; by route {route_counts}")
-    return launches, route_counts
+    return run_counts
 
 
 def rel_err(a, b) -> float:
@@ -752,7 +840,7 @@ def serve_moe(torch, np, cfg, params, ops, lengths):
     (token, k) pairs, layer by layer."""
     n = cfg.n_layers
     with RouteLog() as rl:
-        launches, routes = serve(
+        counts = serve(
             torch, np, cfg, params, ops, lengths=lengths,
             per_pass={"rmsnorm": (4 * n + 1,) * 2, "flash_attention": (n, n), "ssd_scan": (0, 0)},
             routes={"flash_attention": {"prefill": "mma_prefill", "decode": "decode"}},
@@ -778,7 +866,7 @@ def serve_moe(torch, np, cfg, params, ops, lengths):
                          for r in ps)
     log(f"serve {cfg.name}: decode steps dropped {decode_dropped} pairs (capacity 8, 4 rows)")
     assert decode_dropped == 0, decode_dropped
-    return launches, routes
+    return counts
 
 
 def small_moe_against_cpu(torch, np, ops):
@@ -831,8 +919,7 @@ def small_moe_against_cpu(torch, np, ops):
 
 
 def moe_phase(torch, np, ops, dev, card):
-    """Main path 5 and its checks.  Returns its launches and flash
-    launches by route."""
+    """Main path 5 and its checks.  Returns its launches."""
     import dataclasses
 
     from repro_torch.configs import get_config
@@ -843,14 +930,14 @@ def moe_phase(torch, np, ops, dev, card):
     kv = 2 * cfg.n_layers * cfg.n_kv_heads * cfg.head_dim * 2
     log(f"init {cfg.name}: KV cache {kv / 1024:.0f} KiB a token, "
         f"{4 * 512 * kv / 2**20:.0f} MiB at batch 4 x 512")
-    launches, routes = serve_moe(torch, np, cfg, params, ops, lengths=[200, 5, 83, 161, 44, 122])
+    counts = serve_moe(torch, np, cfg, params, ops, lengths=[200, 5, 83, 161, 44, 122])
     # C >= T K for every prompt: a prefill drops no pair, as decode never does
     prefill_decode_consistency(
         torch, np, dataclasses.replace(cfg, capacity_factor=float(cfg.n_experts)), params)
     small_moe_against_cpu(torch, np, ops)
     profile_decode(torch, cfg, params, bounds=moe_weight_bytes(cfg, params, 4))
     calibrate_phase(cfg, params, card)
-    return launches, routes["flash_attention"]
+    return counts
 
 
 # --------------------------------------------------------------------------
@@ -859,15 +946,17 @@ def moe_phase(torch, np, ops, dev, card):
 
 
 def _launch_counts(ops):
-    """Launches per kernel and per route, as one flat dict."""
+    """Launches per kernel, per route (``flash/decode``, ``ssd/mma``) and
+    per flash shape (``flash/decode K=128 causal``), as one flat dict."""
     out = dict(ops.LAUNCHES)
     out.update({f"flash/{r}": n for r, n in ops.FLASH_ROUTES.items()})
+    out.update({f"flash/{k}": n for k, n in ops.FLASH_SHAPES.items()})
     out.update({f"ssd/{r}": n for r, n in ops.SSD_ROUTES.items()})
     return out
 
 
 def _diff(after, before):
-    return {k: after[k] - before[k] for k in after}
+    return {k: after[k] - before.get(k, 0) for k in after}
 
 
 def expected_first_loss(cfg) -> float:
@@ -935,21 +1024,46 @@ def _kernel_kind(name: str) -> str:
     return "elementwise"
 
 
-def profile_train_step(torch, model, opt_cfg, step_fn, state, batch, label):
-    """Device busy share and time by kernel of one train step, from
-    torch.profiler; then one more step split into its two halves,
-    loss_and_grads and adamw_update, each timed to a synchronised end."""
+def profile_calls(torch, label, fn, calls: int = 1):
+    """Wall ms a call (host clock, profiled), device busy ms a call, its
+    share of the wall, kernels a call and the costliest kernels, from
+    torch.profiler over ``calls`` calls of fn."""
     from torch.profiler import ProfilerActivity, profile
-
-    from repro_torch.train.optimizer import adamw_update
-    from repro_torch.train.train_step import loss_and_grads
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        state, _ = step_fn(state, batch)
+        for _ in range(calls):
+            fn()
         torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
+        wall_ms = (time.perf_counter() - t0) * 1e3 / calls
+    kernels = [e for e in prof.key_averages() if e.device_type.name == "CUDA"]
+    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3 / calls
+    if not busy_ms:
+        log(f"profile {label}: the profiler recorded no device time; busy share not measured")
+        return
+    kinds = {}
+    for e in kernels:
+        ms, n = kinds.get(_kernel_kind(e.key), (0.0, 0))
+        kinds[_kernel_kind(e.key)] = (ms + e.self_device_time_total / 1e3 / calls, n + e.count // calls)
+    log(f"profile {label}: wall {wall_ms:.3f} ms a call (profiled), device busy {busy_ms:.4f} ms "
+        f"= {busy_ms / wall_ms:.4f} of wall, {sum(e.count for e in kernels) // calls} kernels a call; "
+        "by kind (ms, launches): "
+        + ", ".join(f"{k} {ms:.4f} {n}" for k, (ms, n) in sorted(kinds.items(), key=lambda kv: -kv[1][0])))
+    ranked = sorted(kernels, key=lambda e: -e.self_device_time_total)
+    for e in ranked[:10] + [e for e in ranked[10:] if _kernel_kind(e.key) == "hand-written"]:
+        log(f"profile {label}:   {e.self_device_time_total / 1e3 / calls:9.4f} ms "
+            f"{e.count // calls:6d}x  {e.key[:110]}")
+
+
+def profile_train_step(torch, model, opt_cfg, step_fn, state, batch, label):
+    """One train step profiled (``profile_calls``); then one more step
+    split into its two halves, loss_and_grads and adamw_update, each timed
+    to a synchronised end."""
+    from repro_torch.train.optimizer import adamw_update
+    from repro_torch.train.train_step import loss_and_grads
+
+    profile_calls(torch, label, lambda: step_fn(state, batch))
     t0 = time.perf_counter()
     _, _, grads = loss_and_grads(model, state.params, batch)
     torch.cuda.synchronize()
@@ -959,29 +1073,13 @@ def profile_train_step(torch, model, opt_cfg, step_fn, state, batch, label):
     t2 = time.perf_counter()
     log(f"profile {label}: an unprofiled step split: loss_and_grads {(t1 - t0) * 1e3:.3f} ms, "
         f"adamw_update {(t2 - t1) * 1e3:.3f} ms (host clock, synchronised)")
-    kernels = [e for e in prof.key_averages() if e.device_type.name == "CUDA"]
-    busy_us = sum(e.self_device_time_total for e in kernels)
-    if not busy_us:
-        log(f"profile {label}: the profiler recorded no device time; busy share not measured")
-        return
-    kinds = {}
-    for e in kernels:
-        ms, n = kinds.get(_kernel_kind(e.key), (0.0, 0))
-        kinds[_kernel_kind(e.key)] = (ms + e.self_device_time_total / 1e3, n + e.count)
-    log(f"profile {label}: one step, wall {wall_ms:.3f} ms (profiled), device busy "
-        f"{busy_us / 1e3:.4f} ms = {busy_us / 1e3 / wall_ms:.4f} of wall, "
-        f"{sum(e.count for e in kernels)} kernels; by kind (ms, launches): "
-        + ", ".join(f"{k} {ms:.4f} {n}" for k, (ms, n) in sorted(kinds.items(), key=lambda kv: -kv[1][0])))
-    ranked = sorted(kernels, key=lambda e: -e.self_device_time_total)
-    for e in ranked[:12] + [e for e in ranked[12:] if _kernel_kind(e.key) == "hand-written"]:
-        log(f"profile {label}:   {e.self_device_time_total / 1e3:9.4f} ms {e.count:6d}x  {e.key[:120]}")
 
 
 def train_deepseek(torch, ops, dev, steps: int = 3):
     """Main path 3: deepseek-7b at full width, depth cut to 8 layers (the
     reference's fp32 AdamW moments for all 30 would not fit in 80 GB),
     bf16, batch 4 x seq 512 from DataLoader(seed=0), make_train_step on
-    init_train_state.  Returns its launches and flash launches by route."""
+    init_train_state.  Returns its launches."""
     import dataclasses
 
     from repro_torch.configs import get_config
@@ -1010,23 +1108,26 @@ def train_deepseek(torch, ops, dev, steps: int = 3):
     ops.reset_launches()
     for batch in batches[:steps]:
         state, _ = timed_step(torch, ops, step_fn, state, batch, records)
+    counts = _launch_counts(ops)
     launches, flash_routes = dict(ops.LAUNCHES), dict(ops.FLASH_ROUTES)
     peak = torch.cuda.max_memory_allocated() / 2**30
     check_train_records(cfg, records, {"rmsnorm": 4 * L + 1, "flash_attention": 2 * L,
-                                       "flash/mma_prefill": 2 * L}, 4 * 512, "train deepseek-7b")
+                                       "flash/mma_prefill": 2 * L,
+                                       f"flash/mma_prefill K={cfg.head_dim} causal": 2 * L},
+                        4 * 512, "train deepseek-7b")
     walls = sorted(r["wall"] for r in records[1:])
     log(f"train deepseek-7b: {steps} steps at batch 4 x seq 512; step wall after the first "
         f"{[round(w * 1e3, 3) for w in walls]} ms, {4 * 512 / walls[0]:.1f} tokens/s at the best; "
         f"peak memory {peak:.2f} GiB; launches {launches}, flash by route {flash_routes}")
     profile_train_step(torch, model, opt_cfg, step_fn, state, batches[steps], "train deepseek-7b")
-    return launches, flash_routes
+    return counts
 
 
 def train_mamba(torch, ops, steps: int = 4):
     """Main path 4: mamba2-370m at full width and depth through the
     training entry point, train_loop(reduced=False, batch 8, seq 512), with
     each step's launches, loss and time read from a wrapped step function.
-    Returns its launches and SSD launches by route."""
+    Returns its launches."""
     from repro_torch.configs import get_config
     from repro_torch.launch import train as train_mod
 
@@ -1046,6 +1147,7 @@ def train_mamba(torch, ops, steps: int = 4):
         res = train_mod.train_loop("mamba2-370m", reduced=False, steps=steps, batch=8, seq=512,
                                    device="cuda", log_every=1)
         wall = time.perf_counter() - t0
+        counts = _launch_counts(ops)
         launches, ssd_routes = dict(ops.LAUNCHES), dict(ops.SSD_ROUTES)
     finally:
         train_mod.make_train_step = make
@@ -1060,7 +1162,7 @@ def train_mamba(torch, ops, steps: int = 4):
         f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; launches {launches}, "
         f"ssd by route {ssd_routes}")
     profile_mamba_step(torch, cfg)
-    return launches, ssd_routes
+    return counts
 
 
 def profile_mamba_step(torch, cfg):
@@ -1130,7 +1232,8 @@ def small_train_against_cpu(torch, ops, steps: int = 3):
             f"{loss_err:.3e} (tol 1e-5); params worst abs err {worst:.3e} (bound {bound:.3e}), "
             f"largest share of a leaf off by > 1e-5 {share:.2e} (tol 1e-3); launches {launches}")
         L = cfg.n_layers
-        mixer = {"deepseek-7b": ("flash_attention", "flash/fma"), "mamba2-370m": ("ssd_scan", "ssd/fma")}
+        mixer = {"deepseek-7b": ("flash_attention", "flash/fma", "flash/fma K=64 causal"),
+                 "mamba2-370m": ("ssd_scan", "ssd/fma")}
         assert launches == {"rmsnorm": steps * (4 * L + 1),
                             **{k: steps * 2 * L for k in mixer[arch]}}, launches
         assert loss_err <= 1e-5 and worst <= bound and share <= 1e-3, (loss_err, worst, share)
@@ -1157,6 +1260,355 @@ def resume_on_card(torch):
     log(f"resume: failed after step 6, resumed from step 4: last loss {resumed['last_loss']!r}; "
         f"straight run {straight['last_loss']!r}")
     assert resumed["last_loss"] == straight["last_loss"], (resumed, straight)
+
+
+# --------------------------------------------------------------------------
+# phase 10: the vlm, audio, sliding-window and hybrid families
+# --------------------------------------------------------------------------
+
+
+def counted_call(torch, ops, fn, *args, **kwargs):
+    """(fn's result, its wall ms to a synchronised end, the launches it made:
+    nonzero counts only, by kernel, route and flash shape)."""
+    before = _launch_counts(ops)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn(*args, **kwargs)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    return out, ms, {k: v for k, v in _diff(_launch_counts(ops), before).items() if v}
+
+
+def last_logits(model, params, inputs, rows):
+    """Logits [B, len(rows), V] at the given positions of a cache-free
+    forward over the whole input (the backbone as Model.loss runs it,
+    without remat)."""
+    import torch
+
+    from repro_torch.models import layers as L
+
+    h, _ = model._embed_inputs(params, inputs)
+    q_pos = torch.arange(h.shape[1], dtype=torch.int32, device=h.device)
+    h, _ = model._backbone(params, h, q_pos)
+    return L.unembed(params["embed"], model.cfg, L.rms_norm(h[:, rows], params["final_norm"]))
+
+
+def vlm_phase(torch, np, ops, dev):
+    """Main path 6: llava-next-mistral-7b at full width and depth, bf16.
+    Prefill of 2 rows, each 1,152 image embeddings (seeded normal) and a
+    200-token prompt (Sq = 1,352 on mma_prefill, 4 query heads a KV head),
+    then 16 decode steps in lockstep; every pass's launches counted.  The
+    last step's logits against a prefill of the whole sequence (relative
+    L2 <= 5e-2, as for deepseek-7b).  Returns its launches."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import Model
+
+    cfg = get_config("llava-next-mistral-7b")
+    params = init_params(torch, Model, cfg, dev)
+    model = Model(cfg)
+    n, Ti, St, steps = cfg.n_layers, cfg.vlm_img_tokens, 200, 16
+    rng = np.random.default_rng(14)
+    pe = torch.from_numpy(rng.normal(size=(2, Ti, cfg.frontend_dim)).astype(np.float32)).to(dev)
+    text = torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, St + steps)).astype(np.int32)).to(dev)
+    S = Ti + St
+    prompt = {"tokens": text[:, :St], "patch_embeds": pe}
+    model.prefill(params, {"tokens": text[:, :8], "patch_embeds": pe[:, :8]})  # warm-up
+    ops.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    cache = model.init_cache(2, S + steps)
+    (logits, _), pre_ms, pre_l = counted_call(torch, ops, model.prefill, params, prompt, cache)
+    dec_ms, dec = [], None
+    for i in range(steps):
+        (dec, _), ms, got = counted_call(torch, ops, model.decode_step, params, cache,
+                                         text[:, St + i : St + i + 1], S + i)
+        dec_ms.append(ms)
+        assert got == {"rmsnorm": 2 * n + 1, "flash_attention": n, "flash/decode": n,
+                       f"flash/decode K={cfg.head_dim} causal": n}, (i, got)
+    counts = _launch_counts(ops)
+    launches, routes = dict(ops.LAUNCHES), dict(ops.FLASH_ROUTES)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    assert pre_l == {"rmsnorm": 2 * n + 1, "flash_attention": n, "flash/mma_prefill": n,
+                     f"flash/mma_prefill K={cfg.head_dim} causal": n}, pre_l
+    assert logits.shape == (2, 1, cfg.padded_vocab) and bool(torch.isfinite(logits).all())
+    assert bool(torch.isfinite(dec).all())
+    dec_ms.sort()
+    log(f"vlm {cfg.name}: prefill of 2 x ({Ti} image + {St} text) = 2 x {S} rows {pre_ms:.3f} ms "
+        f"= {2 * S / pre_ms * 1e3:.1f} rows/s; {steps} decode steps at batch 2, ms median "
+        f"{dec_ms[steps // 2]:.3f} (min {dec_ms[0]:.3f}, max {dec_ms[-1]:.3f}); peak memory "
+        f"{peak:.2f} GiB (cache {2 * (S + steps)} rows); launches {launches}, flash by route {routes}; "
+        f"a prefill {pre_l}")
+    # decode step 16 saw text[:, :St+16]: a prefill of it gives its logits
+    full = last_logits(model, params, {"tokens": text, "patch_embeds": pe}, [S + steps - 1])
+    errs = [rel_err(dec[r, 0], full[r, 0]) for r in range(2)]
+    control = rel_err(dec[1, 0], full[0, 0])
+    log(f"vlm {cfg.name}: consistency of decode step {steps} with a prefill of the whole "
+        f"sequence ({Ti} image + {St + steps} text rows): rel L2 {errs} (tol 5e-2); control "
+        f"(row 1 against row 0) {control:.4f}")
+    assert max(errs) <= 5e-2, errs
+    cache = model.init_cache(2, S + steps)
+    model.prefill(params, prompt, cache)
+    profile_calls(torch, f"{cfg.name} prefill 2 x {S}", lambda: model.prefill(params, prompt))
+    profile_calls(torch, f"{cfg.name} decode step at batch 2", lambda: model.decode_step(
+        params, cache, text[:, St : St + 1], S), calls=5)
+    return counts
+
+
+def audio_phase(torch, np, ops, dev):
+    """Main path 7: hubert-xlarge at full width and depth, bf16 (48 layers,
+    16 heads of 80, non-causal, GeLU MLP).  A prefill over frames of 8 x
+    500 (10 s at 50 frames/s), then 3 train steps at that batch through
+    make_train_step on the masked-frame batches of DataLoader; every
+    attention launch on mma_prefill at K=80, non-causal.  A prefill of one
+    row through the kernels against the plain versions on the card, and
+    the step-0 loss near ln V + s^2/2.  Returns the prefill's and the
+    train steps' launches."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import Model
+    from repro_torch.models.model import n_params
+    from repro_torch.train.data import DataLoader
+    from repro_torch.train.optimizer import AdamWConfig
+    from repro_torch.train.train_step import init_train_state, make_train_step
+
+    cfg = get_config("hubert-xlarge")
+    model = Model(cfg)
+    n, B, S = cfg.n_layers, 8, 500
+    shape = f"flash/mma_prefill K={cfg.head_dim} non-causal"
+    torch.cuda.reset_peak_memory_stats()
+    state = init_train_state(model, torch.Generator(device=dev).manual_seed(0))
+    log(f"audio {cfg.name}: {n_params(state.params)} params, train state "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB (bf16 params, fp32 m and v)")
+    loader = DataLoader(cfg, B, S, seed=0)
+    batches = [{k: torch.from_numpy(v).to(dev) for k, v in loader.next().items()} for _ in range(4)]
+    frames = {"frames": batches[0]["frames"]}
+    model.prefill(state.params, {"frames": frames["frames"][:1, :16]})  # warm-up
+    ops.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    (logits, _), pre_ms, pre_l = counted_call(torch, ops, model.prefill, state.params, frames)
+    assert pre_l == {"rmsnorm": 2 * n + 1, "flash_attention": n, "flash/mma_prefill": n,
+                     shape: n}, pre_l
+    assert logits.shape == (B, 1, cfg.padded_vocab) and bool(torch.isfinite(logits).all())
+    prefill_counts = _launch_counts(ops)
+    log(f"audio {cfg.name}: prefill over {B} x {S} frames {pre_ms:.3f} ms = "
+        f"{B * S / pre_ms * 1e3:.1f} frames/s; peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB (the train state resident); "
+        f"launches {pre_l}")
+    kernels_against_plain(torch, ops, model, state.params, {"frames": frames["frames"][:1]},
+                          f"{cfg.name} prefill 1 x {S}")
+
+    opt_cfg = AdamWConfig(warmup_steps=1, total_steps=100)
+    step_fn = make_train_step(model, opt_cfg)
+    records = []
+    ops.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    for batch in batches[:3]:
+        state, _ = timed_step(torch, ops, step_fn, state, batch, records)
+    train_counts = _launch_counts(ops)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    labels = sum(int((b["labels"] >= 0).sum()) for b in batches[:3])
+    # forward and remat recompute, all non-causal at K=80
+    check_train_records(cfg, records, {"rmsnorm": 4 * n + 1, "flash_attention": 2 * n,
+                                       "flash/mma_prefill": 2 * n, shape: 2 * n},
+                        B * S, f"train {cfg.name}")
+    walls = sorted(r["wall"] for r in records[1:])
+    log(f"train {cfg.name}: 3 steps at batch {B} x {S} frames ({labels} masked-frame labels in "
+        f"all); step wall after the first {[round(w * 1e3, 3) for w in walls]} ms; peak memory "
+        f"{peak:.2f} GiB; launches {dict(ops.LAUNCHES)}, flash by shape {dict(ops.FLASH_SHAPES)}")
+    profile_calls(torch, f"{cfg.name} prefill {B} x {S}", lambda: model.prefill(state.params, frames))
+    profile_train_step(torch, model, opt_cfg, step_fn, state, batches[3], f"train {cfg.name}")
+    return prefill_counts, train_counts
+
+
+def kernels_against_plain(torch, ops, model, params, inputs, label, tol=5e-2):
+    """Last-position logits of one prefill through the kernels against the
+    same prefill with the wrappers swapped for their plain versions, on
+    the card, in the model's type (relative L2 <= tol)."""
+    from repro_torch.kernels import ref
+
+    got = model.prefill(params, inputs)[0].float()
+    saved = ops.rmsnorm, ops.flash_attention
+    ops.rmsnorm, ops.flash_attention = ref.rmsnorm_ref, ref.flash_attention_ref
+    try:
+        n = dict(ops.LAUNCHES)
+        want = model.prefill(params, inputs)[0].float()
+        assert ops.LAUNCHES == n, "a kernel ran in the plain pass"
+    finally:
+        ops.rmsnorm, ops.flash_attention = saved
+    err = rel_err(got, want)
+    log(f"{label}: logits through the kernels against the plain versions on the card, rel L2 "
+        f"{err:.3e} (tol {tol})")
+    assert bool(torch.isfinite(got).all()) and err <= tol, err
+
+
+def swa_phase(torch, np, ops, dev):
+    """Main path 8: h2o-danube-3-4b at full width and depth, bf16 (24
+    layers, 32 query heads on 8 KV heads of 120, window 4096).  One row of
+    8,192 tokens (two windows) prefilled into a 4,096-slot ring, then 16
+    decode steps that overwrite slots 0-15; each step's logits against a
+    cache-free forward over the whole sequence (relative L2 <= 5e-2).
+    Returns its launches."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import Model
+
+    cfg = get_config("h2o-danube-3-4b")
+    params = init_params(torch, Model, cfg, dev)
+    model = Model(cfg)
+    n, S, steps, W = cfg.n_layers, 8192, 16, cfg.sliding_window
+    toks = torch.from_numpy(
+        np.random.default_rng(15).integers(0, cfg.vocab_size, (1, S + steps)).astype(np.int32)).to(dev)
+    model.prefill(params, {"tokens": toks[:, :8]})  # warm-up
+    ops.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    cache = model.init_cache(1, S + steps)
+    ring = cache["sub0"]["k"].shape[2]
+    ring_mb = sum(t.numel() * t.element_size() for c in cache.values() for t in c.values()) / 1e6
+    (logits, _), pre_ms, pre_l = counted_call(torch, ops, model.prefill, params,
+                                              {"tokens": toks[:, :S]}, cache)
+    assert ring == W and pre_l == {"rmsnorm": 2 * n + 1, "flash_attention": n,
+                                   "flash/mma_prefill": n,
+                                   f"flash/mma_prefill K={cfg.head_dim} causal window": n}, pre_l
+    pos = cache["sub0"]["pos"][0, 0]
+    assert torch.equal(pos, torch.arange(S - W, S, dtype=torch.int32, device=dev)), "ring after prefill"
+    decs, dec_ms = [], []
+    for i in range(steps):
+        (dec, _), ms, got = counted_call(torch, ops, model.decode_step, params, cache,
+                                         toks[:, S + i : S + i + 1], S + i)
+        decs.append(dec[0, 0])
+        dec_ms.append(ms)
+        assert got == {"rmsnorm": 2 * n + 1, "flash_attention": n, "flash/decode": n,
+                       f"flash/decode K={cfg.head_dim} causal window": n}, (i, got)
+    counts = _launch_counts(ops)
+    launches = dict(ops.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    want_pos = torch.arange(S - W, S + steps, dtype=torch.int32, device=dev)
+    want_pos = torch.cat([want_pos[-steps:], want_pos[steps:W]])  # slots 0-15 overwritten
+    assert torch.equal(cache["sub0"]["pos"][0, 0], want_pos), "ring after the wrap"
+    dec_ms.sort()
+    log(f"swa {cfg.name}: {ring}-slot ring, cache {ring_mb:.1f} MB a row; prefill of 1 x {S} "
+        f"{pre_ms:.3f} ms = {S / pre_ms * 1e3:.1f} tokens/s; {steps} decode steps over slots "
+        f"0-{steps - 1}, ms median {dec_ms[steps // 2]:.3f} (min {dec_ms[0]:.3f}, max "
+        f"{dec_ms[-1]:.3f}); peak memory {peak:.2f} GiB; launches {launches}, flash by shape "
+        f"{dict(ops.FLASH_SHAPES)}")
+    full = last_logits(model, params, {"tokens": toks}, list(range(S, S + steps)))[0]
+    errs = [rel_err(d, f) for d, f in zip(decs, full)]
+    control = rel_err(decs[1], full[0])
+    log(f"swa {cfg.name}: each decode step against a cache-free forward over all "
+        f"{S + steps} tokens: rel L2 max {max(errs):.4f}, by step {[round(e, 4) for e in errs]} "
+        f"(tol 5e-2); control (step 1 against step 0's row) {control:.4f}")
+    assert bool(torch.isfinite(logits).all()) and max(errs) <= 5e-2, errs
+    profile_calls(torch, f"{cfg.name} prefill 1 x {S}",
+                  lambda: model.prefill(params, {"tokens": toks[:, :S]}, model.init_cache(1, S)))
+    profile_calls(torch, f"{cfg.name} decode step over the ring", lambda: model.decode_step(
+        params, cache, toks[:, S : S + 1], S + steps), calls=5)
+    return counts
+
+
+def hybrid_phase(torch, np, ops):
+    """The hybrid family on the card, cut: reduced jamba-1.5-large-398b
+    (two super-blocks of 8 layers: attention at the 5th, Mamba elsewhere,
+    MoE on every 2nd) at head_dim 64, fp32.  Prefill of 2 x 12 tokens and
+    4 decode steps at per-row positions on the card against the CPU
+    (logits within 1e-4, the same experts and dropped pairs in every
+    routing call); then ServeEngine serves prompts of 3 or more tokens on
+    the card, every pass's launches counted, with the CPU engine's tokens.
+    Returns the served run's launches."""
+    import dataclasses
+
+    from repro_torch.configs import reduced_config
+    from repro_torch.models import Model
+    from repro_torch.serve.engine import Request, ServeEngine
+
+    tol = 1e-4
+    cfg = reduced_config("jamba-1.5-large-398b", head_dim=64)
+    cpu, gpu = Model(cfg, device="cpu"), Model(cfg)
+    p_cpu = cpu.init(torch.Generator().manual_seed(16))
+    p_gpu = _tree_to(p_cpu, gpu.device)
+    toks = torch.from_numpy(np.random.default_rng(17).integers(0, cfg.vocab_size, (2, 16)).astype(np.int32))
+
+    def run(model, params):
+        dev = model.device
+        cache = model.init_cache(2, 32)
+        with RouteLog() as rl:
+            outs = [model.prefill(params, {"tokens": toks[:, :12].to(dev)}, cache)[0].cpu()]
+            for i in range(4):
+                pos = torch.tensor([12 + i, 12 + i], dtype=torch.int32, device=dev)
+                outs.append(model.decode_step(params, cache, toks[:, 12 + i : 13 + i].to(dev), pos)[0].cpu())
+        return outs, [(r.capacity, r.top_i.cpu(), r.keep.cpu()) for r in rl.records]
+
+    out_gpu, r_gpu = run(gpu, p_gpu)
+    out_cpu, r_cpu = run(cpu, p_cpu)
+    worst = max((a - b).abs().max().item() for a, b in zip(out_gpu, out_cpu))
+    moe_layers = sum(f == "moe" for _, f in cfg.layer_kinds()) * cfg.n_scan_blocks
+    same = len(r_gpu) == len(r_cpu) == 5 * moe_layers and all(
+        a[0] == b[0] and torch.equal(a[1], b[1]) and torch.equal(a[2], b[2])
+        for a, b in zip(r_gpu, r_cpu))
+    dropped = sum(int((~keep).sum()) for *_, keep in r_gpu)
+    log(f"hybrid {cfg.name} (reduced, head_dim 64, fp32): card kernels vs cpu plain path, prefill "
+        f"2 x 12 + 4 decode steps: max abs logit err {worst:.3e} (tol {tol}); the same experts and "
+        f"dropped pairs in all {len(r_gpu)} routing calls: {same} ({dropped} pairs dropped)")
+    assert same and worst <= tol, (same, worst)
+
+    nb = cfg.n_scan_blocks
+    kinds = cfg.layer_kinds()
+    n_attn = nb * sum(m == "attn" for m, _ in kinds)
+    n_mamba = nb * sum(m == "mamba" for m, _ in kinds)
+    # every sub-layer has ln1 and ln2 (dense or MoE ff); a Mamba layer adds
+    # its gated norm
+    norms = 2 * cfg.n_layers + n_mamba + 1
+    counts = serve(
+        torch, np, cfg, p_gpu, ops, lengths=[3, 12, 5, 7],
+        per_pass={"rmsnorm": (norms, norms), "flash_attention": (n_attn, n_attn),
+                  "ssd_scan": (n_mamba, 0)},
+        routes={"flash_attention": {"prefill": "fma", "decode": "decode"},
+                "ssd_scan": {"prefill": "fma", "decode": "fma"}},
+    )
+    rng = np.random.default_rng(18)
+    prompts = [rng.integers(0, cfg.vocab_size, m).tolist() for m in (3, 9, 4, 6)]
+    tokens = [ServeEngine(cfg, p, max_len=64, batch_size=2, seed=3, device=d).generate(
+        [Request(i, list(q), 8, t) for i, (q, t) in enumerate(zip(prompts, (0.0, 0.8, 0.0, 0.8)))])
+        for p, d in ((p_gpu, "cuda"), (p_cpu, "cpu"))]
+    log(f"hybrid {cfg.name}: ServeEngine on the card, prompts of {[len(q) for q in prompts]} tokens, "
+        f"8 new tokens each (greedy and sampled): {tokens[0]}; the same as on the cpu: "
+        f"{tokens[0] == tokens[1]}")
+    assert tokens[0] == tokens[1], tokens
+    return counts
+
+
+def kernels_line(results, path_launches, ops):
+    """The ``kernels`` line: one entry per kernel, at its main-path case,
+    with its launches summed over the main paths' runs (``path_launches``:
+    each path's ``_launch_counts``), by path, by route and by flash shape."""
+    total = {}
+    for counts in path_launches.values():
+        for k, v in counts.items():
+            total[k] = total.get(k, 0) + v
+    flash_routes = {r: total[f"flash/{r}"] for r in ops.FLASH_ROUTES}
+    flash_shapes = {k[len("flash/"):]: v for k, v in total.items()
+                    if k.startswith("flash/") and " K=" in k and v}
+    ssd_routes = {r: total[f"ssd/{r}"] for r in ops.SSD_ROUTES}
+    line = []
+    for name, source, replaces, chosen in (
+        ("rmsnorm", "src/repro_torch/csrc/rmsnorm.cu", "src/repro/kernels/rmsnorm.py:24",
+         "bfloat16 rows=8 D=4096"),
+        ("flash_attention", "src/repro_torch/csrc/flash_attention.cu",
+         "src/repro/kernels/flash_attention.py:87", "decode bfloat16 B=8"),
+        ("ssd_scan", "src/repro_torch/csrc/ssd_scan.cu", "src/repro/kernels/ssd_scan.py:98",
+         "prefill bfloat16 B=1 S=512 H=32 P=64 N=128 chunk=128 y=float32"),
+    ):
+        mine = [r for r in results if r["kernel"] == name]
+        rep = next(r for r in mine if r["case"].startswith(chosen))
+        by_path = {arch: counts[name] for arch, counts in path_launches.items()}
+        assert sum(by_path.values()) > 0, f"{name} was not launched on its path"
+        line.append(dict(
+            name=name, route="cuda", source=source, replaces=replaces,
+            launches=sum(by_path.values()), launches_by_path=by_path,
+            **({"launches_by_flash_route": flash_routes,
+                "launches_by_flash_shape": flash_shapes} if name == "flash_attention" else {}),
+            **({"launches_by_ssd_route": ssd_routes} if name == "ssd_scan" else {}),
+            max_abs_err=max(r["max_abs_err"] for r in mine),
+            ms=rep["ms"], plain_ms=rep["plain_ms"], bound_ms=rep["bound_ms"],
+            bound_by=rep["bound_by"], library_ms=rep["library_ms"], case=rep["case"],
+        ))
+    return line
 
 
 # --------------------------------------------------------------------------
@@ -1237,13 +1689,12 @@ def main(argv=None) -> int:
     cfg = get_config("deepseek-7b")
     params = init_params(torch, Model, cfg, dev)
     n = cfg.n_layers
-    launches, route_counts = serve(
+    path_launches = {}  # the launches (_launch_counts) of each main path's run
+    path_launches[cfg.name] = serve(
         torch, np, cfg, params, ops, lengths=[200, 5, 83, 161, 44, 122],
         per_pass={"rmsnorm": (2 * n + 1,) * 2, "flash_attention": (n, n), "ssd_scan": (0, 0)},
         routes={"flash_attention": {"prefill": "mma_prefill", "decode": "decode"}},
     )
-    path_launches = {cfg.name: launches}
-    flash_routes = route_counts["flash_attention"]
 
     # 5. checks
     prefill_decode_consistency(torch, np, cfg, params)
@@ -1262,12 +1713,11 @@ def main(argv=None) -> int:
     # per pass: ln1 and the gated norm in every layer plus the final norm
     # (97); one SSD scan per layer on prefill, none on decode
     # every scan on the tensor-core route (bf16, aligned xBC views)
-    path_launches[cfg.name], route_counts = serve(
+    path_launches[cfg.name] = serve(
         torch, np, cfg, params, ops, lengths=[1, 2, 5, 83, 200, 300],
         per_pass={"rmsnorm": (2 * n + 1,) * 2, "flash_attention": (0, 0), "ssd_scan": (n, 0)},
         routes={"ssd_scan": {"prefill": "mma", "decode": "mma"}},
     )
-    ssd_routes = route_counts["ssd_scan"]
     ssm_prefill_decode_consistency(torch, np, cfg, params)
     small_ssm_against_cpu(torch, np, ops)
     profile_decode(torch, cfg, params)
@@ -1276,44 +1726,29 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
 
     # 8. serve qwen3-moe-30b-a3b at full width (main path 5), and its checks
-    path_launches["qwen3-moe-30b-a3b"], routes = moe_phase(torch, np, ops, dev, card)
-    flash_routes = {r: c + routes[r] for r, c in flash_routes.items()}
+    path_launches["qwen3-moe-30b-a3b"] = moe_phase(torch, np, ops, dev, card)
     torch.cuda.empty_cache()
 
     # 9. training (main paths 3 and 4), and its checks
-    path_launches["deepseek-7b/train"], routes = train_deepseek(torch, ops, dev)
-    flash_routes = {r: c + routes[r] for r, c in flash_routes.items()}
+    path_launches["deepseek-7b/train"] = train_deepseek(torch, ops, dev)
     torch.cuda.empty_cache()
-    path_launches["mamba2-370m/train"], routes = train_mamba(torch, ops)
-    ssd_routes = {r: c + routes[r] for r, c in ssd_routes.items()}
+    path_launches["mamba2-370m/train"] = train_mamba(torch, ops)
     torch.cuda.empty_cache()
     small_train_against_cpu(torch, ops)
     resume_on_card(torch)
 
-    # one line per kernel, at its main-path shape; launches summed over the
-    # main paths' serve and train runs
-    line = []
-    for name, source, replaces, chosen in (
-        ("rmsnorm", "src/repro_torch/csrc/rmsnorm.cu", "src/repro/kernels/rmsnorm.py:24",
-         "bfloat16 rows=8 D=4096"),
-        ("flash_attention", "src/repro_torch/csrc/flash_attention.cu",
-         "src/repro/kernels/flash_attention.py:87", "decode bfloat16 B=8"),
-        ("ssd_scan", "src/repro_torch/csrc/ssd_scan.cu", "src/repro/kernels/ssd_scan.py:98",
-         "prefill bfloat16 B=1 S=512 H=32 P=64 N=128 chunk=128 y=float32"),
-    ):
-        mine = [r for r in results if r["kernel"] == name]
-        rep = next(r for r in mine if r["case"].startswith(chosen))
-        by_path = {arch: counts[name] for arch, counts in path_launches.items()}
-        assert sum(by_path.values()) > 0, f"{name} was not launched on its path"
-        line.append(dict(
-            name=name, route="cuda", source=source, replaces=replaces,
-            launches=sum(by_path.values()), launches_by_path=by_path,
-            **({"launches_by_flash_route": flash_routes} if name == "flash_attention" else {}),
-            **({"launches_by_ssd_route": ssd_routes} if name == "ssd_scan" else {}),
-            max_abs_err=max(r["max_abs_err"] for r in mine),
-            ms=rep["ms"], plain_ms=rep["plain_ms"], bound_ms=rep["bound_ms"],
-            bound_by=rep["bound_by"], library_ms=rep["library_ms"], case=rep["case"],
-        ))
+    # 10. the vlm, audio, sliding-window and hybrid families (main paths 6-8, and
+    # the hybrid cut to its reduced config)
+    path_launches["llava-next-mistral-7b"] = vlm_phase(torch, np, ops, dev)
+    torch.cuda.empty_cache()
+    path_launches["hubert-xlarge"], path_launches["hubert-xlarge/train"] = \
+        audio_phase(torch, np, ops, dev)
+    torch.cuda.empty_cache()
+    path_launches["h2o-danube-3-4b"] = swa_phase(torch, np, ops, dev)
+    torch.cuda.empty_cache()
+    path_launches["jamba-1.5-large-398b/reduced"] = hybrid_phase(torch, np, ops)
+
+    line = kernels_line(results, path_launches, ops)
     log(f"total: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": line}))
     print(json.dumps({"ok": True, "device": {

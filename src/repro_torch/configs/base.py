@@ -11,7 +11,7 @@ equal).  ``family`` selects the block structure:
 * hybrid  — Jamba-style 1:7 attention:mamba interleave, MoE every 2nd layer
 * audio   — encoder-only (bidirectional) transformer, frame-embedding stub
 
-The dense, ssm and moe families run in the port so far.
+All six families run in the port.
 """
 from __future__ import annotations
 

@@ -1,9 +1,11 @@
-"""Registry of the architectures the port serves so far.
+"""Registry of the port's architectures: the JAX package's ten configs,
+copied field for field, one module each.
 
-``deepseek-7b`` (dense), ``mamba2-370m`` (ssm), ``qwen3-moe-30b-a3b``
-and ``moonshot-v1-16b-a3b`` (moe) are registered; the other families'
-configs come with the slices that port their layers (ROADMAP.md, queue A
-item 8).
+dense: ``deepseek-7b``, ``qwen3-32b``, ``granite-34b`` (MQA) and
+``h2o-danube-3-4b`` (sliding window); ssm: ``mamba2-370m``; moe:
+``qwen3-moe-30b-a3b`` and ``moonshot-v1-16b-a3b``; vlm:
+``llava-next-mistral-7b``; audio: ``hubert-xlarge``; hybrid:
+``jamba-1.5-large-398b``.
 """
 from __future__ import annotations
 

@@ -57,6 +57,17 @@
 //    fp32, plain FMA.  TF32 tensor cores would break float32's tolerance,
 //    and this kernel already beats PyTorch's SDPA at the float32 shapes.
 //
+// Head dims: 64, 80, 120 and 128 (hubert-xlarge has 80, h2o-danube-3-4b
+// 120), each a build of its own.  Every route tiles the head dim in powers
+// of two or in 16s, so a route computes over a padded width and stages the
+// dims past K as zeros, which add nothing to q.k and give output columns
+// that are never stored: fma and decode pad 80 and 120 to 128 (decode's
+// lanes past K load nothing, so no byte more is read), mma_prefill rounds
+// up to its 16-element mma depth (80 stays, 120 -> 128; cp.async
+// zero-fills the pad).  Rows stay 16-byte aligned at both widths in both
+// types (160, 240, 320, 480 bytes), and the softmax scale is the true
+// K**-0.5.
+//
 // Skipping keys, in every route: keys are skipped only where their weight
 // is exactly 0 for every row of the block.  A masked key's weight is
 // exp(-1e30 - m) = 0 once its row has seen a visible key, and keys past T
@@ -72,6 +83,8 @@
 #include <limits.h>
 #include <math.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -142,11 +155,12 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  int64_t q_pos_bstride, const int* __restrict__ kv_pos,
                  T* __restrict__ out, int Sq, int T_len, int H, int G,
                  int causal, int has_window, int window, float sm_scale) {
-  constexpr int DPL = K / 32;  // output dimensions per lane
+  constexpr int KP = K <= 64 ? 64 : 128;  // staged width: dims past K are zeros
+  constexpr int DPL = KP / 32;  // output dimensions per lane
   constexpr int VN = Vec<T>::N;
-  __shared__ __align__(16) float qs[kBQ][K];
-  __shared__ __align__(16) float ks[kBK][K + 4];  // +4: conflict-free float4 rows
-  __shared__ __align__(16) float vs[kBK][K];
+  __shared__ __align__(16) float qs[kBQ][KP];
+  __shared__ __align__(16) float ks[kBK][KP + 4];  // +4: conflict-free float4 rows
+  __shared__ __align__(16) float vs[kBK][KP];
 
   const int b = blockIdx.z, g = blockIdx.y;
   const int Hg = H / G;
@@ -155,10 +169,10 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
 
   // Stage the block's query rows, pre-scaled, in fp32.
-  for (int i = tid; i < kBQ * K; i += kThreads) {
-    const int rr = i / K, d = i % K, r = row0 + rr;
+  for (int i = tid; i < kBQ * KP; i += kThreads) {
+    const int rr = i / KP, d = i % KP, r = row0 + rr;
     float val = 0.f;
-    if (r < R) {
+    if (r < R && d < K) {
       const int s = r / Hg, h = g * Hg + r % Hg;
       val = to_f(q[((static_cast<int64_t>(b) * Sq + s) * H + h) * K + d]) * sm_scale;
     }
@@ -200,10 +214,10 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const int seen_block = __syncthreads_and(all_seen);
     if (!any_block && seen_block) continue;
 
-    for (int i = tid; i < kBK * (K / VN); i += kThreads) {
-      const int j = i / (K / VN), c = (i % (K / VN)) * VN;
+    for (int i = tid; i < kBK * (KP / VN); i += kThreads) {
+      const int j = i / (KP / VN), c = (i % (KP / VN)) * VN;
       float fk[VN], fv[VN];
-      if (t0 + j < T_len) {
+      if (t0 + j < T_len && c < K) {
         const int64_t off = ((static_cast<int64_t>(b) * T_len + t0 + j) * G + g) * K + c;
         Vec<T>::load(k + off, fk);
         Vec<T>::load(v + off, fv);
@@ -225,7 +239,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     for (int i = 0; i < kRowsPerWarp; ++i) s[i] = 0.f;
     const float4* krow = reinterpret_cast<const float4*>(&ks[lane][0]);
 #pragma unroll 8
-    for (int d4 = 0; d4 < K / 4; ++d4) {
+    for (int d4 = 0; d4 < K / 4; ++d4) {  // the true width: pads add nothing
       const float4 kv4 = krow[d4];
 #pragma unroll
       for (int i = 0; i < kRowsPerWarp; ++i) {
@@ -278,7 +292,8 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const float denom = fmaxf(l[i], 1e-30f);
     T* o = out + ((static_cast<int64_t>(b) * Sq + s) * H + h) * K + lane * DPL;
 #pragma unroll
-    for (int dd = 0; dd < DPL; ++dd) store(acc[i][dd] / denom, o + dd);
+    for (int dd = 0; dd < DPL; ++dd)
+      if (lane * DPL + dd < K) store(acc[i][dd] / denom, o + dd);
   }
 }
 
@@ -301,12 +316,13 @@ flash_decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
                     int64_t q_pos_bstride, const int* __restrict__ kv_pos,
                     T* __restrict__ out, int T_len, int H, int G, int causal,
                     int has_window, int window, float scale_log2) {
+  constexpr int KP = K <= 64 ? 64 : 128;  // row width in lanes' loads: dims past K are zeros
   constexpr int VN = Vec<T>::N;   // elements per 16-byte load
-  constexpr int LPK = K / VN;     // lanes per key row
+  constexpr int LPK = KP / VN;    // lanes per key row
   constexpr int KPI = 32 / LPK;   // keys per warp-wide load
   constexpr int CH = KPI * U;     // keys per warp step
   __shared__ float red_m[W][RB], red_l[W][RB];
-  __shared__ __align__(16) float red_acc[W][RB][K];
+  __shared__ __align__(16) float red_acc[W][RB][KP];
   __shared__ int lo_s, hi_s;
 
   const int b = blockIdx.z, g = blockIdx.y, Hg = H / G;
@@ -319,10 +335,11 @@ flash_decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
   };
 
   const int slot = lane % LPK, kg = lane / LPK;  // dims [slot*VN, +VN) of key kg of a load
+  const bool live = slot * VN < K;  // a lane past the true width loads nothing and holds zeros
   float qv[RB][VN];  // loaded first: its latency overlaps the scan below
 #pragma unroll
   for (int r = 0; r < RB; ++r) {
-    if (r < nrows) {
+    if (r < nrows && live) {
       Vec<T>::load(q + (static_cast<int64_t>(b) * H + h0 + r) * K + slot * VN, qv[r]);
     } else {
 #pragma unroll
@@ -387,8 +404,8 @@ flash_decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
     for (int u = 0; u < U; ++u) {
       const int t = base + u * KPI + kg;
       const int tt = t < hi ? t : lo;  // an in-range address; its weight is 0
-      kr[u] = load16(kb + tt * key_stride);
-      vr[u] = load16(vb + tt * key_stride);
+      kr[u] = live ? load16(kb + tt * key_stride) : make_uint4(0u, 0u, 0u, 0u);
+      vr[u] = live ? load16(vb + tt * key_stride) : make_uint4(0u, 0u, 0u, 0u);
       kp[u] = t < hi ? kv_pos[t] : kPastT;
     }
     float s[U][RB];
@@ -492,14 +509,22 @@ constexpr int kBM = kRowGroups * 16;  // rows per block
 constexpr int kBN = 64;               // keys per tile
 constexpr int kStages = 2;            // K/V tiles in the cp.async ring
 
+// The width the tensor-core route computes over: K rounded up to the
+// 16-element depth of an mma.sync step (120 -> 128; 64, 80, 128 stay);
+// the dims past K are staged as zeros.
+template <int K>
+__host__ __device__ constexpr int mma_width() {
+  return (K + 15) / 16 * 16;
+}
+
 template <int K>
 constexpr size_t mma_smem_bytes() {
-  // Q [kBM][K+8] and kStages stages of K and V [kBN][K+8] in bf16 and of
+  // Q [kBM][KD+8] and kStages stages of K and V [kBN][KD+8] in bf16 and of
   // kv_pos [kBN]; with a key split, at the end the K stages hold the
-  // second warp's partial output of each row group, [kRowGroups][16][K+8]
-  // fp32.
+  // second warp's partial output of each row group, [kRowGroups][16][KD+8]
+  // fp32 (KD = mma_width<K>()).
   static_assert(kRowGroups * 16 * 4 <= kStages * kBN * 2, "partials must fit in the K stages");
-  return (kBM + 2 * kStages * kBN) * (K + 8) * sizeof(__nv_bfloat16) +
+  return (kBM + 2 * kStages * kBN) * (mma_width<K>() + 8) * sizeof(__nv_bfloat16) +
          kStages * kBN * sizeof(int);
 }
 
@@ -563,8 +588,10 @@ flash_prefill_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat1
                          int64_t q_pos_bstride, const int* __restrict__ kv_pos,
                          __nv_bfloat16* __restrict__ out, int Sq, int T_len, int H, int G,
                          int causal, int has_window, int window, float scale_log2) {
-  constexpr int KP = K + 8;   // padded row: 8 rows' 16-byte chunks fall in distinct banks
-  constexpr int CPR = K / 8;  // 16-byte chunks per row
+  constexpr int KD = mma_width<K>();  // computed width; dims [K, KD) are zeros
+  constexpr int KP = KD + 8;  // padded row: 8 rows' 16-byte chunks fall in distinct banks
+  constexpr int CPR = KD / 8;  // 16-byte chunks per staged row
+  constexpr int CPK = K / 8;   // of them, the chunks that hold data
   constexpr int kMmaThreads = NH * kRowGroups * 32;
   constexpr int HN = kBN / NH;  // keys per warp per tile
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -586,7 +613,7 @@ flash_prefill_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat1
   auto load_tile = [&](int j, int st) {
     for (int x = tid; x < kBN * CPR; x += kMmaThreads) {
       const int jj = x / CPR, c = x % CPR, t = j * kBN + jj;
-      const bool ok = t < T_len;
+      const bool ok = t < T_len && c < CPK;
       const int64_t off = ok ? ((static_cast<int64_t>(b) * T_len + t) * G + g) * K + c * 8 : 0;
       cp_async16(smem_u32(ks + (st * kBN + jj) * KP + c * 8), k + off, ok);
       cp_async16(smem_u32(vs + (st * kBN + jj) * KP + c * 8), v + off, ok);
@@ -603,7 +630,7 @@ flash_prefill_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat1
   // meanwhile.
   for (int i = tid; i < kBM * CPR; i += kMmaThreads) {
     const int rr = i / CPR, c = i % CPR, r = row0 + rr;
-    const bool ok = r < R;
+    const bool ok = r < R && c < CPK;
     const __nv_bfloat16* src =
         ok ? q + ((static_cast<int64_t>(b) * Sq + r / Hg) * H + g * Hg + r % Hg) * K + c * 8 : q;
     cp_async16(smem_u32(qs + rr * KP + c * 8), src, ok);
@@ -695,10 +722,10 @@ flash_prefill_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat1
     cp_async_commit();
   };
 
-  uint32_t qf[K / 16][4];
-  float o[K / 8][4];
+  uint32_t qf[KD / 16][4];
+  float o[KD / 8][4];
 #pragma unroll
-  for (int nb = 0; nb < K / 8; ++nb) o[nb][0] = o[nb][1] = o[nb][2] = o[nb][3] = 0.f;
+  for (int nb = 0; nb < KD / 8; ++nb) o[nb][0] = o[nb][1] = o[nb][2] = o[nb][3] = 0.f;
   float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};  // l: this thread's columns only
 
   int n = nmain > 0 ? nmain : nT;
@@ -714,7 +741,7 @@ flash_prefill_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat1
     __syncthreads();
     if (i == 0) {
 #pragma unroll
-      for (int kk = 0; kk < K / 16; ++kk)
+      for (int kk = 0; kk < KD / 16; ++kk)
         ldsm_x4(smem_u32(qs + (rg * 16 + (lane & 15)) * KP + kk * 16 + (lane >> 4) * 8), qf[kk]);
     }
     const int st = i % kStages;
@@ -728,7 +755,7 @@ flash_prefill_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat1
 #pragma unroll
     for (int nb = 0; nb < HN / 8; ++nb) s[nb][0] = s[nb][1] = s[nb][2] = s[nb][3] = 0.f;
 #pragma unroll
-    for (int kk = 0; kk < K / 16; ++kk) {
+    for (int kk = 0; kk < KD / 16; ++kk) {
 #pragma unroll
       for (int p = 0; p < HN / 16; ++p) {
         uint32_t bf[4];
@@ -784,7 +811,7 @@ flash_prefill_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat1
       }
     }
 #pragma unroll
-    for (int nb = 0; nb < K / 8; ++nb) {
+    for (int nb = 0; nb < KD / 8; ++nb) {
       o[nb][0] *= alpha[0];
       o[nb][1] *= alpha[0];
       o[nb][2] *= alpha[1];
@@ -795,7 +822,7 @@ flash_prefill_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat1
 #pragma unroll
     for (int j = 0; j < HN / 16; ++j) {
 #pragma unroll
-      for (int dp = 0; dp < K / 16; ++dp) {
+      for (int dp = 0; dp < KD / 16; ++dp) {
         uint32_t bf[4];
         ldsm_x4_trans(smem_u32(vst + (j * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * KP +
                                dp * 16 + (lane >> 4) * 8),
@@ -864,7 +891,7 @@ flash_prefill_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat1
     __nv_bfloat16* orow =
         out + ((static_cast<int64_t>(b) * Sq + grow / Hg) * H + g * Hg + grow % Hg) * K + tq * 2;
 #pragma unroll
-    for (int nb = 0; nb < K / 8; ++nb) {
+    for (int nb = 0; nb < K / 8; ++nb) {  // the true width: columns past K are not stored
       float2 o2 = make_float2(0.f, 0.f);
       if (NH == 2) o2 = *reinterpret_cast<const float2*>(part_o + row * KP + nb * 8 + tq * 2);
       *reinterpret_cast<__nv_bfloat162*>(orow + nb * 8) = __floats2bfloat162_rn(
@@ -955,13 +982,26 @@ int launch_mma(const Call& c) {
   return launch_mma_nh<K, 1>(c, grid);
 }
 
+// Calls f with K as a compile-time constant, for the head dims the routes
+// are built for; cudaErrorInvalidValue for any other.
+template <typename F>
+int with_head_dim(int K, F f) {
+  switch (K) {
+    case 64: return f(std::integral_constant<int, 64>{});
+    case 80: return f(std::integral_constant<int, 80>{});
+    case 120: return f(std::integral_constant<int, 120>{});
+    case 128: return f(std::integral_constant<int, 128>{});
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
 }  // namespace
 
 // q [B,Sq,H,K], k/v [B,T,G,K], out [B,Sq,H,K], all contiguous and 16-byte
 // aligned; q_pos int32 with q_pos[b*q_pos_bstride + s]; kv_pos int32 [T].
-// dtype: 0 = float32, 1 = bfloat16; K is 64 or 128.  route: 0 = fma
-// (float32), 1 = decode (Sq == 1), 2 = mma_prefill (bfloat16).  Returns
-// cudaGetLastError() after the launch (0 on success).
+// dtype: 0 = float32, 1 = bfloat16; K is 64, 80, 120 or 128.  route: 0 =
+// fma (float32), 1 = decode (Sq == 1), 2 = mma_prefill (bfloat16).
+// Returns cudaGetLastError() after the launch (0 on success).
 extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v,
                                    const int* q_pos, int64_t q_pos_bstride,
                                    const int* kv_pos, void* out, int B, int Sq,
@@ -969,16 +1009,16 @@ extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v,
                                    int has_window, int window, int dtype,
                                    int route, void* stream) {
   if (B <= 0 || B > 65535 || Sq <= 0 || T_len <= 0 || G <= 0 || G > 65535 ||
-      H % G != 0 || (K != 64 && K != 128))
+      H % G != 0)
     return (int)cudaErrorInvalidValue;
   const Call c{q, k, v, q_pos, q_pos_bstride, kv_pos, out, B, Sq, T_len, H, G,
                causal, has_window, window, static_cast<cudaStream_t>(stream)};
-  const bool k128 = K == 128;
-  if (route == 0 && dtype == 0) return k128 ? launch_fma<128>(c) : launch_fma<64>(c);
-  if (route == 1 && Sq == 1 && dtype == 0)
-    return k128 ? launch_decode<float, 128>(c) : launch_decode<float, 64>(c);
-  if (route == 1 && Sq == 1 && dtype == 1)
-    return k128 ? launch_decode<__nv_bfloat16, 128>(c) : launch_decode<__nv_bfloat16, 64>(c);
-  if (route == 2 && dtype == 1) return k128 ? launch_mma<128>(c) : launch_mma<64>(c);
-  return (int)cudaErrorInvalidValue;
+  return with_head_dim(K, [&](auto kd) {
+    constexpr int KD = decltype(kd)::value;
+    if (route == 0 && dtype == 0) return launch_fma<KD>(c);
+    if (route == 1 && Sq == 1 && dtype == 0) return launch_decode<float, KD>(c);
+    if (route == 1 && Sq == 1 && dtype == 1) return launch_decode<__nv_bfloat16, KD>(c);
+    if (route == 2 && dtype == 1) return launch_mma<KD>(c);
+    return (int)cudaErrorInvalidValue;
+  });
 }

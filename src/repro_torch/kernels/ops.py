@@ -15,33 +15,62 @@ package's flash-attention ``custom_vjp`` does (``repro/kernels/ops.py``,
 incremented right after a launch succeeds and nowhere else, so a run can
 show that its main path went through the kernels (a block recomputed by
 ``torch.utils.checkpoint`` launches its kernels again, and counts them).
-``FLASH_ROUTES`` and ``SSD_ROUTES`` split the flash-attention and SSD-scan
-launches by the kernel each call ran (``_flash_route``, ``_ssd_route``).
+``FLASH_SHAPES`` splits the flash-attention launches by the kernel each
+call ran (``_flash_route``), head dim and mask, e.g. ``"mma_prefill K=80
+non-causal"`` or ``"decode K=120 causal window"``; ``FLASH_ROUTES`` is its
+read-only sum by route.  ``SSD_ROUTES`` splits the SSD-scan launches by
+route (``_ssd_route``).
 """
 from __future__ import annotations
 
-from typing import Callable, Dict, Optional, Sequence, Tuple
+from collections.abc import Mapping
+from typing import Callable, Dict, Iterator, Optional, Sequence, Tuple
 
 import torch
 
 from . import _build, ref
 
 LAUNCHES: Dict[str, int] = {"rmsnorm": 0, "flash_attention": 0, "ssd_scan": 0}
-FLASH_ROUTES: Dict[str, int] = {"decode": 0, "mma_prefill": 0, "fma": 0}
+FLASH_SHAPES: Dict[str, int] = {}  # keys made by _flash_shape, added at first launch
 _FLASH_ROUTE_CODES = {"fma": 0, "decode": 1, "mma_prefill": 2}  # csrc/flash_attention.cu
+
+
+class _FlashRoutes(Mapping):
+    """Flash launches by route: ``FLASH_SHAPES`` summed over head dim and
+    mask, one entry per route."""
+
+    def __getitem__(self, route: str) -> int:
+        if route not in _FLASH_ROUTE_CODES:
+            raise KeyError(route)
+        return sum(n for key, n in FLASH_SHAPES.items() if key.split()[0] == route)
+
+    def __iter__(self) -> Iterator[str]:
+        return iter(("decode", "mma_prefill", "fma"))
+
+    def __len__(self) -> int:
+        return len(_FLASH_ROUTE_CODES)
+
+    def __repr__(self) -> str:
+        return repr(dict(self))
+
+
+FLASH_ROUTES = _FlashRoutes()
 SSD_ROUTES: Dict[str, int] = {"mma": 0, "fma": 0}
 _SSD_ROUTE_CODES = {"fma": 0, "mma": 1}  # csrc/ssd_scan.cu
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-_HEAD_DIMS = (64, 128)
+# the cases of csrc/flash_attention.cu's with_head_dim, which
+# tests/test_torch_kernels.py holds equal to this tuple
+_HEAD_DIMS = (64, 80, 120, 128)
 _SSD_SIZES = (16, 32, 64, 128)  # the SSD kernel's P, N and chunk
 _SSD_MMA_SIZES = (64, 128)  # N and chunk of the SSD scan's tensor-core route
 
 
 def reset_launches() -> None:
-    for counts in (LAUNCHES, FLASH_ROUTES, SSD_ROUTES):
+    for counts in (LAUNCHES, SSD_ROUTES):
         for name in counts:
             counts[name] = 0
+    FLASH_SHAPES.clear()
 
 
 def _on_cpu(*tensors: torch.Tensor) -> bool:
@@ -178,6 +207,12 @@ def _flash_route(Sq: int, dtype: torch.dtype) -> str:
     return "mma_prefill" if dtype == torch.bfloat16 else "fma"
 
 
+def _flash_shape(route: str, K: int, causal: bool, window: Optional[int]) -> str:
+    """The ``FLASH_SHAPES`` key of a launch: route, head dim and mask."""
+    mask = "causal" if causal else "non-causal"
+    return f"{route} K={K} {mask}" + (" window" if window is not None else "")
+
+
 def flash_attention(
     q: torch.Tensor,  # [B,Sq,H,K]
     k: torch.Tensor,  # [B,T,G,K]
@@ -189,7 +224,7 @@ def flash_attention(
 ) -> torch.Tensor:
     """Online-softmax GQA attention.  Any Sq and T; the KV head of query
     head h is h // (H // G); masks come from the positions; output in q's
-    dtype.  On the card: head_dim 64 or 128, float32 or bfloat16, one
+    dtype.  On the card: head_dim 64, 80, 120 or 128, float32 or bfloat16, one
     launch of the kernel ``_flash_route`` names; the backward recomputes
     ``ref.flash_attention_ref`` (the gradient of the fp32 plain function,
     as in the JAX package)."""
@@ -271,7 +306,8 @@ def _flash_attention_kernel(q, k, v, q_pos, kv_pos, causal, window) -> torch.Ten
         int(window or 0), code, _FLASH_ROUTE_CODES[route], _stream(q),
     )
     _check_launch("flash_attention", err)
-    FLASH_ROUTES[route] += 1
+    shape = _flash_shape(route, K, causal, window)
+    FLASH_SHAPES[shape] = FLASH_SHAPES.get(shape, 0) + 1
     return out
 
 

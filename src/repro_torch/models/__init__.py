@@ -1,2 +1,2 @@
-"""Model stack of the port (dense family)."""
+"""Model stack of the port: the six families of the JAX package."""
 from .model import Model  # noqa: F401

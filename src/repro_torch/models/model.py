@@ -1,20 +1,27 @@
-"""Model facade of the port: init / loss / prefill / decode for the dense,
-ssm and moe families.
+"""Model facade of the port: init / loss / prefill / decode for all six
+families (dense, moe, ssm, hybrid, vlm, audio).
 
 The JAX package scans over stacked blocks (``repro/models/model.py``); the
 port keeps the stacked ``[n_blocks, ...]`` parameter and cache leaves and
 loops over the block index, and within a block over the sub-layers of
 ``cfg.layer_kinds()`` (mixer ``attn`` or ``mamba``, ff ``dense``, ``moe``
-or ``none``).  ``loss`` recomputes every block in the backward pass
+or ``none``; a hybrid block is a super-block of ``attn_period`` of them).
+``loss`` recomputes every block in the backward pass
 (``torch.utils.checkpoint``, the JAX package's ``jax.checkpoint`` with
-``nothing_saveable``).  The hybrid, vlm and audio families raise
-``NotImplementedError`` naming the ROADMAP.md item that will port them.
+``nothing_saveable``).
+
+Batch dicts per family, as in the JAX package:
+  dense/moe/ssm/hybrid : {"tokens": [B,S] i32, "labels": [B,S] i32}
+  vlm   : {"tokens": [B,S_text], "labels": [B,S_text],
+           "patch_embeds": [B,T_img,frontend_dim]}   (S_text+T_img = S)
+  audio : {"frames": [B,S,frontend_dim], "labels": [B,S]}
 """
 from __future__ import annotations
 
 from typing import Any, Dict, List, Optional, Tuple, Union
 
 import torch
+import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ArchConfig
@@ -24,13 +31,6 @@ from . import moe as X
 
 Params = Dict[str, Any]
 Spec = Dict[str, Any]
-
-_NOT_PORTED = {
-    "hybrid": "ROADMAP.md queue A item 8 (hybrid)",
-    "vlm": "ROADMAP.md queue A item 8 (remaining families)",
-    "audio": "ROADMAP.md queue A item 8 (remaining families)",
-}
-
 
 def resolve_device(device: Union[str, torch.device]) -> torch.device:
     """The device an entry point runs on.  ``"cuda"`` needs a CUDA device
@@ -127,24 +127,29 @@ def param_spec(cfg: ArchConfig) -> Spec:
             sub["ln2"] = norm
             sub["moe"] = stacked(X.moe_spec(cfg))
         blocks[f"sub{i}"] = sub
-    return {
+    spec: Spec = {
         "embed": L.embedding_spec(cfg),
         "blocks": blocks,
         "final_norm": ((cfg.d_model,), None),
     }
+    F_, D = cfg.frontend_dim, cfg.d_model
+    if cfg.family == "vlm":  # the 2-layer GeLU projector of patch embeddings
+        spec["projector"] = {"w1": ((F_, D), F_**-0.5), "w2": ((D, D), D**-0.5)}
+    elif cfg.family == "audio":  # the projection of frame features
+        spec["frontend_proj"] = ((F_, D), F_**-0.5)
+    return spec
 
 
 class Model:
     def __init__(self, cfg: ArchConfig, device: Union[str, torch.device] = "cuda"):
-        if cfg.family in _NOT_PORTED:
-            raise NotImplementedError(
-                f"{cfg.name}: the {cfg.family} family is not ported yet; "
-                f"see {_NOT_PORTED[cfg.family]}"
-            )
         self.cfg = cfg
         self.device = resolve_device(device)
         self.kinds = cfg.layer_kinds()
         self.n_blocks = cfg.n_scan_blocks
+        # leaves ``loss`` never reads: an audio model embeds frames, so its
+        # token table is read only when tied to the unembedding
+        untied_audio = cfg.family == "audio" and not cfg.tie_embeddings
+        self.unread_by_loss = frozenset({"embed/tokens"} if untied_audio else ())
 
     def init(self, generator: torch.Generator) -> Params:
         """Random params drawn from ``generator``, which must live on the
@@ -215,21 +220,46 @@ class Model:
                 aux_total = aux if aux_total is None else aux_total + aux
         return h, aux_total
 
+    # ---- family-specific embedding --------------------------------------
+
+    def _embed_inputs(
+        self, params: Params, batch: Dict[str, torch.Tensor]
+    ) -> Tuple[torch.Tensor, int]:
+        """(h [B,S,D], n_prefix), n_prefix the rows before the text: audio
+        projects its frames; vlm puts the projected patch embeddings (when
+        the batch has them) before the text tokens; the other families
+        embed their tokens."""
+        dt = L.dtype_of(self.cfg)
+        if self.cfg.family == "audio":
+            frames = batch["frames"]
+            B, S, F_ = frames.shape
+            h = frames.to(dt).reshape(B * S, F_) @ params["frontend_proj"]
+            return h.view(B, S, -1), 0
+        tok = L.embed_tokens(params["embed"], batch["tokens"])
+        if self.cfg.family == "vlm" and "patch_embeds" in batch:
+            proj = params["projector"]
+            img = batch["patch_embeds"].to(dt) @ proj["w1"]
+            img = F.gelu(img, approximate="tanh") @ proj["w2"]  # jax.nn.gelu's default
+            return torch.cat([img, tok], dim=1), img.shape[1]
+        return tok, 0
+
     # ---- public API -----------------------------------------------------
 
     def loss(
         self, params: Params, batch: Dict[str, torch.Tensor]
     ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-        """Next-token cross-entropy of ``batch["tokens"] [B,S]`` against
-        ``batch["labels"] [B,S]`` (-1 ignored), every block recomputed in
-        the backward pass.  Returns (loss, {"xent", "aux", "n_tokens"}),
-        fp32 scalars; ``aux`` (MoE's load-balance term summed over the
-        blocks, weight 0.01) is 0 for the dense and ssm families."""
-        tokens = batch["tokens"]
-        h = L.embed_tokens(params["embed"], tokens)
-        q_pos = torch.arange(tokens.shape[1], dtype=torch.int32, device=h.device)
+        """Next-token cross-entropy against ``batch["labels"] [B,S]`` (-1
+        ignored) of the family's inputs (see the module docstring; a vlm
+        batch's image rows get no logits), every block recomputed in the
+        backward pass.  Returns (loss, {"xent", "aux", "n_tokens"}), fp32
+        scalars; ``aux`` (MoE's load-balance term summed over the blocks,
+        weight 0.01) is 0 without MoE layers."""
+        h, n_prefix = self._embed_inputs(params, batch)
+        q_pos = torch.arange(h.shape[1], dtype=torch.int32, device=h.device)
         h, aux = self._backbone(params, h, q_pos, remat=True)
         h = L.rms_norm(h, params["final_norm"])
+        if n_prefix:
+            h = h[:, n_prefix:]
         logits = L.unembed(params["embed"], self.cfg, h)
         xent, n_tok = L.cross_entropy(logits, batch["labels"])
         if aux is None:
@@ -263,11 +293,11 @@ class Model:
         batch: Dict[str, torch.Tensor],
         cache: Optional[Params] = None,
     ) -> Tuple[torch.Tensor, Optional[Params]]:
-        """Process the prompt ``batch["tokens"] [B,S]``; returns (last-token
-        logits [B,1,V], cache).  The cache is filled in place."""
-        tokens = batch["tokens"]
-        h = L.embed_tokens(params["embed"], tokens)
-        S = tokens.shape[1]
+        """Process the prompt (the family's inputs: tokens, image and text,
+        or frames); returns (last-token logits [B,1,V], cache).  The cache
+        is filled in place."""
+        h, _ = self._embed_inputs(params, batch)
+        S = h.shape[1]
         q_pos = torch.arange(S, dtype=torch.int32, device=h.device)
         h, _ = self._backbone(params, h, q_pos, cache=cache, cache_index=0)
         h = L.rms_norm(h, params["final_norm"])
@@ -284,7 +314,8 @@ class Model:
         token: a scalar when the whole batch decodes in lockstep, or a
         per-row ``[B]`` vector when rows sit at different depths (the
         serving engine's continuous-refill loop).  The cache is updated in
-        place and returned."""
+        place and returned.  The new token is a text token in every
+        family, embedded from the token table (as in the JAX package)."""
         h = L.embed_tokens(params["embed"], tokens)
         pos = torch.as_tensor(pos, dtype=torch.int32, device=h.device)
         q_pos = pos[None] if pos.ndim == 0 else pos[:, None]

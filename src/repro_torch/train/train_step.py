@@ -12,7 +12,7 @@ from typing import Any, Dict, NamedTuple, Optional, Tuple
 import torch
 
 from ..models.model import Model
-from ..tree import leaves, tree_map, unflatten
+from ..tree import leaves, leaves_with_paths, tree_map, unflatten
 from .optimizer import (
     AdamWConfig,
     AdamWState,
@@ -52,13 +52,18 @@ def loss_and_grads(
     """``jax.value_and_grad(model.loss, has_aux=True)``: (loss, metrics,
     grads in the params' tree and dtypes).  The grads are taken against
     detached aliases of the params, so the caller's tensors keep
-    ``requires_grad=False``."""
+    ``requires_grad=False``.  The leaves the model names in
+    ``unread_by_loss`` (an audio model's token table) get zeros, as in
+    JAX; any other leaf the loss does not reach makes autograd raise."""
     live = tree_map(lambda p: p.detach().requires_grad_(), params)
+    flat = leaves_with_paths(live)
+    unread = model.unread_by_loss
     with torch.enable_grad():
         loss, metrics = model.loss(live, batch)
-        grads = torch.autograd.grad(loss, leaves(live))
+        read = iter(torch.autograd.grad(loss, [p for path, p in flat if path not in unread]))
+    grads = [torch.zeros_like(p) if path in unread else next(read) for path, p in flat]
     metrics = {k: v.detach() for k, v in metrics.items()}
-    return loss.detach(), metrics, unflatten(live, list(grads))
+    return loss.detach(), metrics, unflatten(live, grads)
 
 
 def make_train_step(

@@ -34,13 +34,16 @@ def test_port_modules_load_no_jax_and_no_repro():
     )
     assert out.returncode == 0, out.stderr
     first, names = out.stdout.splitlines()[:2]
-    assert int(first.split()[0]) >= 29  # every module of the slices so far was imported
-    assert {  # the training slice, then the MoE slice
+    assert int(first.split()[0]) >= 35  # every module of the slices so far was imported
+    assert {  # the training slice, the MoE slice, then the remaining families' configs
         "repro_torch.tree", "repro_torch.train.optimizer", "repro_torch.train.train_step",
         "repro_torch.train.data", "repro_torch.train.fault_tolerance",
         "repro_torch.train.checkpoint", "repro_torch.launch.train",
         "repro_torch.models.moe", "repro_torch.configs.qwen3_moe_30b_a3b",
         "repro_torch.configs.moonshot_v1_16b_a3b",
+        "repro_torch.configs.qwen3_32b", "repro_torch.configs.granite_34b",
+        "repro_torch.configs.h2o_danube3_4b", "repro_torch.configs.llava_next_mistral_7b",
+        "repro_torch.configs.hubert_xlarge", "repro_torch.configs.jamba_1_5_large_398b",
     } <= set(names.split())
 
 

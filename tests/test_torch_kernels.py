@@ -166,11 +166,25 @@ def test_flash_route_by_query_length_and_dtype(Sq, dtype, route):
 
 
 def test_cpu_flash_counts_no_route_and_reset_clears_routes():
-    ops.FLASH_ROUTES["decode"] += 3
+    ops.FLASH_SHAPES["decode K=128 causal"] = 3
+    assert ops.FLASH_ROUTES["decode"] == 3
     ops.reset_launches()
     q, k, v, qpos, kpos = (torch.tensor(a) for a in _mk(1, 1, 4, 2, 2, 64))
     ops.flash_attention(q, k, v, qpos, kpos)
     assert ops.FLASH_ROUTES == {"decode": 0, "mma_prefill": 0, "fma": 0}
+
+
+def test_flash_shape_keys_and_reset_clears_them():
+    """FLASH_SHAPES names a launch by route, head dim and mask; a CPU call
+    adds none, and reset_launches empties it."""
+    assert ops._flash_shape("mma_prefill", 80, False, None) == "mma_prefill K=80 non-causal"
+    assert ops._flash_shape("decode", 120, True, 4096) == "decode K=120 causal window"
+    assert ops._flash_shape("fma", 64, True, None) == "fma K=64 causal"
+    ops.FLASH_SHAPES["decode K=64 causal"] = 2
+    ops.reset_launches()
+    q, k, v, qpos, kpos = (torch.tensor(a) for a in _mk(1, 3, 4, 2, 2, 80))
+    ops.flash_attention(q, k, v, qpos, kpos, False, 2)
+    assert ops.FLASH_SHAPES == {}
 
 
 # --------------------------------------------------------------------------

@@ -100,7 +100,7 @@ def _kv(B, T, G, K, dtype, device, seed):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("K", [64, 128])
+@pytest.mark.parametrize("K", [64, 80, 120, 128])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("Hg", [1, 4, 8])
 @pytest.mark.parametrize("T", [1, 31, 32, 33, 100, 512, 1000])
@@ -134,12 +134,13 @@ def test_flash_decode_route_matches_plain(cuda_device, T, Hg, dtype, K):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("K", [80, 120, 128])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("G", [8, 32])
-def test_flash_decode_route_window_ring_buffer(cuda_device, G, dtype):
+def test_flash_decode_route_window_ring_buffer(cuda_device, G, dtype, K):
     """The decode route with a sliding window over a ring buffer, where
     slot t holds position t + W * wraps: kv_pos is not monotone in t."""
-    B, W, H, K, window = 3, 256, 32, 128, 96
+    B, W, H, window = 3, 256, 32, 96
     q = torch.randn(B, 1, H, K, generator=torch.Generator(device=cuda_device).manual_seed(3),
                     device=cuda_device).to(_TDT[dtype])
     k, v = _kv(B, W, G, K, dtype, cuda_device, seed=4)
@@ -154,7 +155,7 @@ def test_flash_decode_route_window_ring_buffer(cuda_device, G, dtype):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("K", [64, 128])
+@pytest.mark.parametrize("K", [64, 80, 120, 128])
 @pytest.mark.parametrize("case", ["causal", "chunked", "window", "gqa", "empty_slots", "wide"])
 @pytest.mark.parametrize("Sq", [2, 17, 63, 65, 200])
 def test_flash_mma_prefill_route_matches_plain(cuda_device, Sq, case, K):
@@ -563,3 +564,128 @@ def test_train_step_loss_and_grads_match_cpu(cuda_device, arch):
     want = dict(leaves_with_paths(gc))
     for key, g in leaves_with_paths(gg):
         torch.testing.assert_close(g.cpu(), want[key], atol=1e-4 * want[key].abs().max().item(), rtol=0)
+
+
+# The vlm, audio and sliding-window families' widths: head_dim 80
+# (hubert-xlarge, non-causal) and 120 (h2o-danube-3-4b, a 4096-key window),
+# and granite-34b's MQA (48 query heads on one KV head)
+
+
+_ROUTE_ARGS = {  # route: (dtype, Sq)
+    "fma": ("float32", 37), "mma_prefill": ("bfloat16", 37),
+    "decode_f32": ("float32", 1), "decode_bf16": ("bfloat16", 1),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("K", [64, 80, 120, 128])
+@pytest.mark.parametrize("mask", ["causal", "non_causal", "window", "window_non_causal"])
+@pytest.mark.parametrize("route", list(_ROUTE_ARGS))
+def test_flash_head_dims_masks_every_route(cuda_device, route, mask, K):
+    """Every route at every head dim, causal or not, with or without a
+    window, over a cache whose queries sit at its end and middle (decode:
+    per-row positions), on the route _flash_route names."""
+    dtype, Sq = _ROUTE_ARGS[route]
+    B, T, H, G = 2, 150, 8, 2
+    causal, window = "non_causal" not in mask, 40 if "window" in mask else None
+    gen = torch.Generator(device=cuda_device).manual_seed(K + Sq)
+    q = torch.randn(B, Sq, H, K, generator=gen, device=cuda_device).to(_TDT[dtype])
+    k, v = _kv(B, T, G, K, dtype, cuda_device, seed=K)
+    kpos = torch.arange(T, dtype=torch.int32, device=cuda_device)
+    if Sq == 1:
+        qpos = torch.tensor([[T - 1], [70]], dtype=torch.int32, device=cuda_device)
+    else:
+        qpos = torch.arange(T - Sq, T, dtype=torch.int32, device=cuda_device)
+    name = ops._flash_route(Sq, _TDT[dtype])
+    n = ops.FLASH_ROUTES[name]
+    out = ops.flash_attention(q, k, v, qpos, kpos, causal, window)
+    torch.cuda.synchronize()
+    assert ops.FLASH_ROUTES[name] == n + 1 and out.shape == q.shape
+    want = ref.flash_attention_ref(q, k, v, qpos, kpos, causal, window)
+    tol = 2e-5 if dtype == "float32" else 2e-2
+    assert bool(torch.isfinite(out).all())
+    torch.testing.assert_close(out.float(), want.float(), atol=tol, rtol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["hubert", "h2o_prefill", "h2o_decode_wrapped"])
+def test_flash_family_shapes(cuda_device, case):
+    """The full-width paths' own calls: hubert-xlarge's non-causal prefill
+    (B=8, S=500, 16 heads of 80), h2o-danube-3-4b's windowed prefill of two
+    windows (S=8192, window 4096, 32 on 8 heads of 120), and its decode
+    over the 4096-slot ring after 16 tokens wrapped over slots 0-15."""
+    if case == "hubert":
+        B, Sq, T, H, G, K, causal, window = 8, 500, 500, 16, 16, 80, False, None
+    elif case == "h2o_prefill":
+        B, Sq, T, H, G, K, causal, window = 1, 8192, 8192, 32, 8, 120, True, 4096
+    else:
+        B, Sq, T, H, G, K, causal, window = 1, 1, 4096, 32, 8, 120, True, 4096
+    gen = torch.Generator(device=cuda_device).manual_seed(21)
+    q = torch.randn(B, Sq, H, K, generator=gen, device=cuda_device).bfloat16()
+    k, v = _kv(B, T, G, K, "bfloat16", cuda_device, seed=22)
+    if case == "h2o_decode_wrapped":
+        slots = torch.arange(T, dtype=torch.int32, device=cuda_device)
+        kpos = torch.where(slots < 16, slots + 8192, slots + 4096)  # 8192..8207, then 4112..8191
+        qpos = torch.tensor([8207], dtype=torch.int32, device=cuda_device)
+    else:
+        kpos = torch.arange(T, dtype=torch.int32, device=cuda_device)
+        qpos = kpos
+    out = ops.flash_attention(q, k, v, qpos, kpos, causal, window)
+    want = ref.flash_attention_ref(q, k, v, qpos, kpos, causal, window)
+    assert bool(torch.isfinite(out).all())
+    torch.testing.assert_close(out.float(), want.float(), atol=2e-2, rtol=2e-2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("Sq", [1, 5, 200])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_mqa_one_kv_head(cuda_device, Sq, dtype):
+    """granite-34b's attention: 48 query heads on G = 1 KV head of 128, a
+    decode step at per-row positions and prefills, on every route."""
+    B, T, H, G, K = 2, 256, 48, 1, 128
+    gen = torch.Generator(device=cuda_device).manual_seed(Sq + 31)
+    q = torch.randn(B, Sq, H, K, generator=gen, device=cuda_device).to(_TDT[dtype])
+    k, v = _kv(B, T, G, K, dtype, cuda_device, seed=32)
+    kpos = torch.arange(T, dtype=torch.int32, device=cuda_device)
+    if Sq == 1:
+        qpos = torch.tensor([[255], [100]], dtype=torch.int32, device=cuda_device)
+    else:
+        qpos = torch.arange(T - Sq, T, dtype=torch.int32, device=cuda_device)
+    out = ops.flash_attention(q, k, v, qpos, kpos, True, None)
+    want = ref.flash_attention_ref(q, k, v, qpos, kpos, True, None)
+    tol = 2e-5 if dtype == "float32" else 2e-2
+    assert bool(torch.isfinite(out).all())
+    torch.testing.assert_close(out.float(), want.float(), atol=tol, rtol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch,head_dim", [("llava-next-mistral-7b", 128), ("hubert-xlarge", 80)])
+def test_vlm_and_audio_inputs_on_card_match_cpu(cuda_device, arch, head_dim):
+    """Reduced llava-next-mistral-7b (image rows before the text) and
+    hubert-xlarge (frames, non-causal, head_dim 80), fp32: the embedded
+    inputs, the prefill logits (through the kernels on the card, the plain
+    versions on the CPU) and the loss agree within 1e-4."""
+    from repro_torch.configs import reduced_config
+    from repro_torch.models import Model
+    from repro_torch.train.data import make_batch
+    from repro_torch.tree import tree_map
+
+    cfg = reduced_config(arch, head_dim=head_dim)
+    cpu, gpu = Model(cfg, device="cpu"), Model(cfg, device=cuda_device)
+    p_cpu = cpu.init(torch.Generator().manual_seed(0))
+    p_gpu = tree_map(lambda t: t.to(cuda_device), p_cpu)
+    b = {k: torch.from_numpy(v) for k, v in make_batch(cfg, 2, 24, step=0).items()}
+    b_gpu = {k: v.to(cuda_device) for k, v in b.items()}
+    (h_c, n_c), (h_g, n_g) = cpu._embed_inputs(p_cpu, b), gpu._embed_inputs(p_gpu, b_gpu)
+    assert n_c == n_g == (cfg.vlm_img_tokens if cfg.family == "vlm" else 0)
+    torch.testing.assert_close(h_g.cpu(), h_c, atol=1e-5, rtol=1e-5)
+    inputs = {k: v for k, v in b.items() if k != "labels"}
+    l_c, _ = cpu.prefill(p_cpu, inputs, cpu.init_cache(2, 32))
+    n = ops.LAUNCHES["flash_attention"]
+    l_g, _ = gpu.prefill(p_gpu, {k: v.to(cuda_device) for k, v in inputs.items()},
+                         gpu.init_cache(2, 32))
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["flash_attention"] == n + cfg.n_layers
+    torch.testing.assert_close(l_g.cpu(), l_c, atol=1e-4, rtol=1e-4)
+    loss_c, loss_g = cpu.loss(p_cpu, b)[0], gpu.loss(p_gpu, b_gpu)[0]
+    torch.testing.assert_close(loss_g.cpu(), loss_c, atol=1e-5, rtol=1e-5)

@@ -101,14 +101,6 @@ def test_entry_points_refuse_to_fall_back_to_cpu():
         TModel(CFG)
 
 
-def test_unported_families_name_their_roadmap_item():
-    hybrid = dataclasses.replace(
-        CFG, family="hybrid", n_experts=4, top_k=2, attn_period=2, moe_period=2
-    )
-    with pytest.raises(NotImplementedError, match="queue A item 8"):
-        TModel(hybrid, device="cpu")
-
-
 def test_dense_init_draws_in_spec_order():
     """The spec's leaf kinds (added for Mamba) leave the dense draws as
     they were: one fp32 normal per std leaf, in the spec's order, and no
