@@ -80,12 +80,35 @@ Phases (any failure exits non-zero):
                 reduced config at head_dim 64 in fp32: prefill and decode
                 on the card against the CPU (the same routing), then
                 ServeEngine, its tokens against the CPU engine's.
+ 11. parallel — the dry run (repro_torch.launch.dryrun) of one shape per
+                arch on a fake 16x16 mesh (256 ranks), a line per cell:
+                fits_h100, the per-device peak, FLOPs, collective bytes, the
+                bottleneck.  Then, on a one-rank NCCL group and a (1, 1) cuda
+                mesh, with params, state, cache and batch as DTensors placed
+                by the sharding rules, six cells against their dry run on
+                the meta device at the same cut: mamba2-370m and
+                h2o-danube-3-4b at long_500k (one decode step, uncut),
+                deepseek-7b at decode_32k (batch 2), mamba2-370m at train_4k
+                (batch 8: loss, grads, AdamW), deepseek-7b at train_4k
+                (batch 2, 8 layers) and qwen3-moe-30b-a3b at decode_32k
+                (batch 2) under moe_a2a, whose logits must equal apply_moe's
+                bit for bit.  In one step of each cell every kernel call
+                is held against its plain version on the same inputs (row
+                error within PLAIN_TOL; a decode cache drawn at random), and
+                phase 3 holds each kernel at these cells' shapes.  Each
+                holds the state's bytes
+                (requested exactly; allocated within the allocator's
+                rounding), the step's peak (measured / predicted in
+                PEAK_BAND), FLOPs and roofline time against the median of 5
+                steps, and every step's launches by kernel, route, head dim
+                and mask, all through the wrappers' DTensor branch.
 Then one line {"kernels": [...]} and, last, {"ok": true, "device": {...}}.
 
     python3 chip_smoke.py --only rmsnorm,ssd,prefill_profile --src DIR
 
-runs phases 1-3 for the named kernels (and the profiled prefill) on the
-port in DIR/src, then stops: two trees' kernels timed in one chip call.
+runs phases 1-3 for the named kernels (and the profiled prefill, or phase
+11 for "parallel") on the port in DIR/src, then stops: two trees' kernels
+timed in one chip call.
 
 Imports nothing of JAX or of the JAX package.
 """
@@ -98,8 +121,6 @@ import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
-HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
-PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}  # dense bf16 tensor / fp32 non-tensor
 L2_FLUSH_BYTES = 64 << 20  # more than the 50 MB L2: every timed launch starts cold
 SPIN_CYCLES = 40_000_000  # about 20 ms of device time at the H100's clock
 SPIN_HZ = 2.0e9  # above the H100's top SM clock, so a spin lasts at least cycles / SPIN_HZ
@@ -154,6 +175,10 @@ class Timer:
 
 
 def bound(bytes_moved: float, flops: float, dtype: str):
+    """(least ms, "bytes" or "operations"): the H100 data sheet's rates,
+    kept in repro_torch/launch/analysis.py."""
+    from repro_torch.launch.analysis import HBM_BYTES_PER_S, PEAK_FLOPS
+
     t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
     t_ops = flops / PEAK_FLOPS[dtype] * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
@@ -215,11 +240,13 @@ def rmsnorm_cases(torch, ops, ref, timer, dev):
     return out
 
 
-def row_rel_l2(got, want) -> float:
-    """The largest relative L2 error of a query row (over heads and dims)
-    of attention outputs ``[B,Sq,H,K]``."""
-    d = (got.float() - want.float()).flatten(2).norm(dim=-1)
-    return (d / want.float().flatten(2).norm(dim=-1)).max().item()
+def rel_rows(got, want, keep: int) -> float:
+    """The largest relative L2 error of a row of ``got`` against ``want``,
+    a row being one index of the first ``keep`` dims (a flash output's
+    query row, a normed row, a scan position or state head)."""
+    d = (got.float() - want.float()).flatten(keep).norm(dim=-1)
+    err = (d / want.float().flatten(keep).norm(dim=-1).clamp_min(1e-30)).max().item()
+    return err if err == err else float("inf")  # NaN: no agreement
 
 
 def _scaled_q(q, K):
@@ -285,6 +312,9 @@ def flash_cases(torch, ops, ref, timer, dev):
     # h2o-danube-3-4b's decode after 16 tokens wrapped its 4096-slot ring
     ring = torch.arange(4096, **i32)
     ring_kv = torch.where(ring < 16, ring + 8192, ring + 4096)  # 8192..8207, then 4112..8191
+    # phase 11's decode cells: both rows at the last of 32,768 written slots
+    last_q = torch.full((2, 1), 32767, **i32)
+    full_kv = torch.arange(32768, **i32)
     cases += [  # name, B, Sq, T, H, G, K, dtype, window, q_pos, kv_pos, causal
         # the vlm, audio and sliding-window paths' own calls
         ("vlm_prefill", 2, 1352, 1352, 32, 8, 128, "bfloat16", None, None, None, True),
@@ -295,6 +325,9 @@ def flash_cases(torch, ops, ref, timer, dev):
         # granite-34b's MQA: 48 query heads on one KV head
         ("mqa_decode", 4, 1, 512, 48, 1, 128, "bfloat16", None, serve_q, serve_kv, True),
         ("mqa_prefill", 1, 200, 200, 48, 1, 128, "bfloat16", None, None, None, True),
+        # deepseek-7b and qwen3-moe-30b-a3b x decode_32k at batch 2 (phase 11)
+        ("decode_32k", 2, 1, 32768, 32, 32, 128, "bfloat16", None, last_q, full_kv, True),
+        ("decode_32k_moe", 2, 1, 32768, 32, 4, 128, "bfloat16", None, last_q, full_kv, True),
     ]
     gen = torch.Generator(device=dev).manual_seed(2)
     out = []
@@ -320,12 +353,12 @@ def flash_cases(torch, ops, ref, timer, dev):
         # each query row at its own scale: a row that averages thousands of
         # keys has outputs near 0.02, far below the absolute tolerance
         rel_tol = 1e-4 if dtype == "float32" else 1e-2
-        rel = row_rel_l2(got, want)
+        rel = rel_rows(got, want, 2)
         ok = ok and rel <= rel_tol
         faults = {}
         if name in PLANTED_FAULTS:  # the check must catch each of these
             for fault, (fq, fqp, fkp, fc, fw) in PLANTED_FAULTS[name](q, qpos, kvpos, window).items():
-                faults[fault] = row_rel_l2(ref.flash_attention_ref(fq, k, v, fqp, fkp, fc, fw), want)
+                faults[fault] = rel_rows(ref.flash_attention_ref(fq, k, v, fqp, fkp, fc, fw), want, 2)
             ok = ok and min(faults.values()) > rel_tol
 
         mask = ref.attention_mask(qpos, kvpos, causal, window)  # [Sq,T] or [B,Sq,T]
@@ -361,15 +394,9 @@ def flash_cases(torch, ops, ref, timer, dev):
     return out
 
 
-def ssd_flops(B, S, H, P, N, Q) -> int:
-    """Operations of the chunked scan: per (b, h, chunk of q <= Q
-    positions) 2q^2 N (C B^T) + 2q^2 P (W x) + 4qNP (the carried state's
-    output and the state update); the tail chunk counts its q = S % Q."""
-    qs = [Q] * (S // Q) + ([S % Q] if S % Q else [])
-    return B * H * sum(2 * q * q * N + 2 * q * q * P + 4 * q * N * P for q in qs)
-
-
 def ssd_cases(torch, ops, ref, timer, dev):
+    from repro_torch.launch.cost import ssd_flops
+
     cases = [
         # name, B, S, H, P, N, chunk, dtype of x/B/C, dtype of y
         ("prefill", 1, 512, 32, 64, 128, 128, "bfloat16", "float32"),  # the model's call
@@ -386,6 +413,7 @@ def ssd_cases(torch, ops, ref, timer, dev):
         ("sweep", 1, 200, 3, 16, 32, 64, "float32", "float32"),
         ("reduced", 1, 12, 8, 16, 16, 16, "float32", "float32"),
         ("train", 8, 512, 32, 64, 128, 128, "bfloat16", "float32"),  # mamba2-370m's step
+        ("train_4k", 8, 4096, 32, 64, 128, 128, "bfloat16", "float32"),  # phase 11's train cell
     ]
     gen = torch.Generator(device=dev).manual_seed(5)
     out = []
@@ -425,7 +453,7 @@ def ssd_cases(torch, ops, ref, timer, dev):
         esize, ysize = x.element_size(), y.element_size()
         moved = (B * S_run * H * P * (esize + ysize) + 4 * B * S_run * H + 4 * H
                  + 2 * B * S_run * N * esize + 4 * B * H * N * P * (2 if init is not None else 1))
-        b_ms, b_by = bound(moved, ssd_flops(B, S_run, H, P, N, Q), dtype)
+        b_ms, b_by = bound(moved, ssd_flops(B, S_run, H, P, N, Q), dtype)  # launch/cost.py
         out.append(dict(
             kernel="ssd_scan",
             case=f"{name} {dtype} B={B} S={S_run} H={H} P={P} N={N} chunk={Q} y={ydtype}"
@@ -731,7 +759,7 @@ def profile_decode(torch, cfg, params, batch: int = 4, steps: int = 5, bounds=No
         expert_bytes, step_bytes = bounds
         bmm = [e for e in prof.key_averages() if e.key == "aten::bmm"]
         bmm_ms = sum(e.device_time_total for e in bmm) / steps / 1e3
-        t_expert, t_step = (b / HBM_BYTES_PER_S * 1e3 for b in (expert_bytes, step_bytes))
+        t_expert, t_step = (bound(b, 0, "bfloat16")[0] for b in (expert_bytes, step_bytes))
         log(f"profile {cfg.name}: expert products (aten::bmm, {sum(e.count for e in bmm) // steps}/step) "
             + (f"{bmm_ms:.4f} ms/step of device time" if bmm_ms else "device time not measured")
             + f", byte bound {t_expert:.4f} ms ({expert_bytes / 1e9:.3f} GB of expert weights); "
@@ -806,8 +834,8 @@ class RouteLog:
     def __enter__(self):
         self.route = route = self.moe.route
 
-        def recorded(router, cfg, xt):
-            r = route(router, cfg, xt)
+        def recorded(router, cfg, xt, *args):
+            r = route(router, cfg, xt, *args)
             self.records.append(r)
             return r
 
@@ -1573,6 +1601,269 @@ def hybrid_phase(torch, np, ops):
     return counts
 
 
+# --------------------------------------------------------------------------
+# phase 11: the parallel and launch layer
+# --------------------------------------------------------------------------
+
+# The dry run of one shape per arch on the fake 16x16 mesh (all 32 cells
+# take about 160 s of host time: python -m repro_torch.launch.dryrun --all
+# writes them).
+DRYRUN_CELLS = (
+    ("deepseek-7b", "decode_32k"), ("granite-34b", "decode_32k"),
+    ("h2o-danube-3-4b", "long_500k"), ("hubert-xlarge", "prefill_32k"),
+    ("jamba-1.5-large-398b", "long_500k"), ("llava-next-mistral-7b", "decode_32k"),
+    ("mamba2-370m", "long_500k"), ("moonshot-v1-16b-a3b", "decode_32k"),
+    ("qwen3-32b", "prefill_32k"), ("qwen3-moe-30b-a3b", "decode_32k"),
+)
+# The cells run on the card, on a (1, 1) mesh: (arch, shape, batch cut to
+# (None: not cut), layers cut to (None: not cut), opts, launches a step by
+# kernel, route, head dim and mask, the cut as PERF.md states it).
+CARD_CELLS = (
+    ("mamba2-370m", "long_500k", None, None, (), {"rmsnorm": 97},
+     "not cut: one decode step"),
+    ("h2o-danube-3-4b", "long_500k", None, None, (),
+     {"rmsnorm": 49, "flash/decode K=120 causal window": 24},
+     "not cut: the 4,096-slot ring, one decode step at its last slot, every slot written"),
+    ("deepseek-7b", "decode_32k", 2, None, (), {"rmsnorm": 61, "flash/decode K=128 causal": 30},
+     "batch 128 -> 2: a full 32,768-slot cache"),
+    ("mamba2-370m", "train_4k", 8, None, (), {"rmsnorm": 193, "ssd/mma": 96},
+     "batch 256 -> 8: loss, grads and AdamW"),
+    ("deepseek-7b", "train_4k", 2, 8, (), {"rmsnorm": 33, "flash/mma_prefill K=128 causal": 16},
+     "batch 256 -> 2, layers 30 -> 8 (AdamW for 30 needs 82.9 GB): loss, grads and AdamW"),
+    ("qwen3-moe-30b-a3b", "decode_32k", 2, None, ("moe_a2a",),
+     {"rmsnorm": 193, "flash/decode K=128 causal": 48},
+     "batch 128 -> 2: a full 32,768-slot cache; moe_a2a on a model group of one rank"),
+)
+# measured / predicted per-device peak of a step: PERF.md's first
+# prediction set 0.97-1.15; the first runs read 0.9999994-1.00025 in every
+# cell, so the band is held at that reading's width
+PEAK_BAND = (0.999, 1.01)
+# a kernel call's worst row relative L2 against its plain version on the
+# same inputs (the flash cases' bf16 row tolerance)
+PLAIN_TOL = 1e-2
+SEGMENT = 2 << 20  # the caching allocator's large segments are whole 2 MiB
+
+
+def dryrun_cells(torch):
+    """The dry run of DRYRUN_CELLS, each on a fake group of 256 made and
+    destroyed by run_cell; one line each."""
+    import torch.distributed as dist
+
+    from repro_torch.launch import dryrun
+
+    for arch, shape in DRYRUN_CELLS:
+        t0 = time.perf_counter()
+        r = dryrun.run_cell(arch, shape, False, verbose=False)
+        assert r["ok"] and not dist.is_initialized(), r
+        keys = ("fits_h100", "peak_memory_bytes", "state_bytes", "flops", "bytes",
+                "coll_bytes", "coll_breakdown", "model_flops", "bottleneck", "kernel_calls")
+        log("dryrun: " + json.dumps({"cell": f"{arch} x {shape} x 16x16",
+                                     "s": round(time.perf_counter() - t0, 1),
+                                     **{k: r[k] for k in keys}}))
+
+
+class CallsAgainstPlain:
+    """While installed, every kernel wrapper call that comes as DTensors
+    runs as it would (``local_map`` to the kernel) and, beside it, the
+    kernel's plain version on the same local inputs; each kernel's worst
+    row error (``rel_rows``) and its calls are kept.  Plain-tensor calls
+    (the wrappers' own, inside ``local_map``) pass as they are."""
+
+    KEEP = {"rmsnorm": -1, "flash_attention": 2, "ssd_scan": 2}  # row dims, per output
+
+    def __init__(self, torch, ops):
+        from repro_torch.kernels import ref
+
+        def ssd_plain(x, dt, A, Bm, Cm, chunk, init_state=None, out_dtype=torch.float32):
+            y, state = ref.ssd_chunked_ref(x, dt, A, Bm, Cm, chunk, init_state)
+            return y.to(out_dtype), state
+
+        self.torch, self.ops = torch, ops
+        self.plain = {"rmsnorm": ref.rmsnorm_ref, "flash_attention": ref.flash_attention_ref,
+                      "ssd_scan": ssd_plain}
+        self.worst = {name: 0.0 for name in self.plain}
+        self.calls = {name: 0 for name in self.plain}
+
+    def _checked(self, name, wrapper):
+        from torch.distributed.tensor import DTensor
+
+        torch = self.torch
+
+        def call(*args, **kwargs):
+            out = wrapper(*args, **kwargs)
+            if not any(isinstance(a, DTensor) for a in args):
+                return out
+            local = lambda a: a.to_local() if isinstance(a, DTensor) else a  # noqa: E731
+            with torch.no_grad():
+                want = self.plain[name](*map(local, args), **{k: local(v) for k, v in kwargs.items()})
+            outs, wants = (out, want) if isinstance(out, tuple) else ((out,), (want,))
+            for o, w in zip(outs, wants):
+                o = local(o).detach()
+                keep = self.KEEP[name] % o.ndim
+                self.worst[name] = max(self.worst[name], rel_rows(o, w, keep))
+            self.calls[name] += 1
+            return out
+
+        return call
+
+    def __enter__(self):
+        self.saved = {name: getattr(self.ops, name) for name in self.plain}
+        for name, wrapper in self.saved.items():
+            setattr(self.ops, name, self._checked(name, wrapper))
+        return self
+
+    def __exit__(self, *exc):
+        for name, wrapper in self.saved.items():
+            setattr(self.ops, name, wrapper)
+
+
+def card_cell(torch, ops, dev, mesh, arch, shape, batch, layers, opts, per_step, note, steps=5):
+    """One dry-run cell on the card, against its dry run on the meta device
+    with the same mesh and cut: the state's bytes (exact), the step's peak
+    (in PEAK_BAND), FLOPs and roofline time against the step's median
+    device time, and every step's launches by kernel, route and shape, all
+    through the wrappers' DTensor branch; and one step's every kernel call
+    against its plain version on the same inputs.  Returns the launches
+    of the timed steps."""
+    import dataclasses
+    import gc
+
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.configs import SHAPES, get_config
+    from repro_torch.launch import analysis, dryrun
+    from repro_torch.models import Model
+    from repro_torch.parallel import opt_flags
+    from repro_torch.tree import leaves
+
+    cfg = get_config(arch) if layers is None else dataclasses.replace(get_config(arch), n_layers=layers)
+    cell = SHAPES[shape] if batch is None else dataclasses.replace(SHAPES[shape], global_batch=batch)
+    meta = Model(cfg, device="meta")
+    dryrun.set_opts(meta, cell, mesh, opts)
+    t0 = time.perf_counter()
+    pred = dryrun.measure(meta, cell, mesh)
+    opt_flags.reset()
+    mode, predict_s = pred["mode"], time.perf_counter() - t0
+
+    gc.collect()  # nothing of an earlier cell may be freed inside this one's counts
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    requested = lambda: torch.cuda.memory_stats()["requested_bytes.all.current"]  # noqa: E731
+    a0, r0 = torch.cuda.memory_allocated(), requested()
+    model = Model(cfg, device=dev)
+    state = dryrun.build_state(model, cell, mesh, torch.Generator(device=dev).manual_seed(0))
+    torch.cuda.synchronize()
+    state_req, state_alloc = requested() - r0, torch.cuda.memory_allocated() - a0
+    n = sum(1 for t in leaves(state) if torch.is_tensor(t))
+    assert all(isinstance(t, DTensor) for t in leaves(state) if torch.is_tensor(t))
+    assert state_req == pred["state_bytes"], (state_req, pred["state_bytes"])
+    # each block the size asked, up to 512 B, or the rest of its 2 MiB segment
+    assert pred["state_allocated_bytes"] <= state_alloc <= pred["state_allocated_bytes"] + n * SEGMENT
+
+    dryrun.set_opts(model, cell, mesh, opts)
+    try:
+        if "moe_a2a" in opts:  # the expert-parallel path against apply_moe, bit for bit
+            ep = dryrun.run_step(model, cell, state)[0].to_local()
+            opt_flags.set_flags(moe_a2a=False)
+            plain = dryrun.run_step(model, cell, state)[0].to_local()
+            opt_flags.set_flags(moe_a2a=True)
+            assert torch.equal(ep, plain), (ep - plain).abs().max()
+            log(f"parallel: {arch} moe_a2a decode logits equal apply_moe's bit for bit "
+                f"({tuple(ep.shape)} {ep.dtype})")
+            del ep, plain
+        before = _launch_counts(ops)
+        with CallsAgainstPlain(torch, ops) as check:
+            dryrun.run_step(model, cell, state)
+        launched = _diff(_launch_counts(ops), before)
+        log(f"parallel: {arch} x {shape}: each kernel call of a step against its plain version "
+            f"on the same local inputs, worst row rel L2 {check.worst} (tol {PLAIN_TOL}) over "
+            f"calls {check.calls}")
+        for name, calls in check.calls.items():
+            assert calls == launched.get(name, 0) and check.worst[name] <= PLAIN_TOL, (
+                arch, shape, name, calls, launched, check.worst)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        out = dryrun.run_step(model, cell, state)  # the step the peak is read on
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() - a0
+        first = out[0] if cell.kind != "train" else out[1]["loss"]
+        assert isinstance(first, DTensor) and bool(first.to_local().float().isfinite().all())
+        del out, first
+        records = []
+        for _ in range(steps):
+            before = _launch_counts(ops)
+            calls = dict(ops.DTENSOR_CALLS)
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            dryrun.run_step(model, cell, state)
+            end.record()
+            torch.cuda.synchronize()
+            got = _diff(_launch_counts(ops), before)
+            through = {k: ops.DTENSOR_CALLS[k] - calls[k] for k in calls}
+            records.append((start.elapsed_time(end), got))
+            for key, want in per_step.items():
+                assert got.get(key, 0) == want, (arch, shape, key, got)
+            for name in ops.LAUNCHES:  # every launch came through local_map
+                assert got.get(name, 0) == through[name], (name, got, through)
+    finally:
+        opt_flags.reset()
+    step_ms = sorted(ms for ms, _ in records)[len(records) // 2]
+    t_flops = mode.flops / analysis.PEAK_FLOPS["bfloat16"] * 1e3
+    t_bytes = mode.bytes / analysis.HBM_BYTES_PER_S * 1e3
+    ratio = peak / mode.peak_bytes
+    row = {
+        "cell": f"{arch} x {shape} on the (1, 1) cuda mesh", "reduced": note, "opts": list(opts),
+        "state_bytes": {"predicted": pred["state_bytes"], "requested": state_req,
+                        "predicted_allocated": pred["state_allocated_bytes"],
+                        "allocated": state_alloc, "tensors": n},
+        "peak_bytes": {"predicted": mode.peak_bytes, "measured": peak, "ratio": ratio},
+        "flops": mode.flops, "bytes": mode.bytes, "roofline_ms": max(t_flops, t_bytes),
+        "bound_by": "operations" if t_flops >= t_bytes else "bytes",
+        "step_ms": step_ms, "step_ms_all": [ms for ms, _ in records],
+        "step_over_roofline": step_ms / max(t_flops, t_bytes),
+        "launches_per_step": {k: v for k, v in records[-1][1].items() if v},
+        "predict_s": round(predict_s, 1),
+    }
+    log("parallel: " + json.dumps(row))
+    assert PEAK_BAND[0] <= ratio <= PEAK_BAND[1], (arch, shape, ratio)
+    del state
+    torch.cuda.empty_cache()
+    return {k: sum(got[k] for _, got in records) for k in records[0][1]}
+
+
+def parallel_phase(torch, ops, dev):
+    """Phase 11: the dry run on the fake 16x16 mesh, then CARD_CELLS on a
+    one-rank NCCL group (a FileStore: no network) and a (1, 1) cuda mesh.
+    Returns each card cell's launches."""
+    import tempfile
+
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    t0 = time.perf_counter()
+    dryrun_cells(torch)
+    log(f"parallel: dry run of {len(DRYRUN_CELLS)} cells in {time.perf_counter() - t0:.1f} s")
+    launches = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group("nccl", store=dist.FileStore(f"{tmp}/store", 1),
+                                rank=0, world_size=1, device_id=dev)
+        try:
+            mesh = init_device_mesh("cuda", (1, 1), mesh_dim_names=("data", "model"))
+            dist.all_reduce(torch.ones(1, device=dev))  # NCCL's set-up before any count
+            # the cuBLAS and cuBLASLt workspaces, made at their first call and
+            # kept (32 MiB, 1 MiB), before any cell counts its memory
+            for dtype in (torch.float32, torch.bfloat16):
+                a = torch.ones(64, 64, device=dev, dtype=dtype)
+                a @ a, torch.nn.functional.linear(a, a, a[0]), torch.bmm(a[None], a[None])
+            torch.cuda.synchronize()
+            for arch, shape, batch, layers, opts, per_step, note in CARD_CELLS:
+                launches[f"parallel {arch} {shape}"] = card_cell(
+                    torch, ops, dev, mesh, arch, shape, batch, layers, opts, per_step, note)
+        finally:
+            dist.destroy_process_group()
+    return launches
+
+
 def kernels_line(results, path_launches, ops):
     """The ``kernels`` line: one entry per kernel, at its main-path case,
     with its launches summed over the main paths' runs (``path_launches``:
@@ -1619,14 +1910,14 @@ def parse_args(argv):
 
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--only", default="",
-                    help="comma list of rmsnorm, flash, ssd, prefill_profile: run the device "
-                         "and build phases and these, then stop (to time another tree's "
-                         "kernels beside this one's in one chip call)")
+                    help="comma list of rmsnorm, flash, ssd, prefill_profile, parallel: run the "
+                         "device and build phases and these, then stop (to time another tree's "
+                         "kernels beside this one's in one chip call, or phase 11 alone)")
     ap.add_argument("--src", type=Path, default=ROOT,
                     help="root of the checkout whose src/repro_torch is run (default: this one)")
     args = ap.parse_args(argv)
     args.only = [p for p in args.only.split(",") if p]
-    unknown = set(args.only) - {"rmsnorm", "flash", "ssd", "prefill_profile"}
+    unknown = set(args.only) - {"rmsnorm", "flash", "ssd", "prefill_profile", "parallel"}
     if unknown:
         ap.error(f"unknown phases {sorted(unknown)}")
     return args
@@ -1682,6 +1973,8 @@ def main(argv=None) -> int:
         if "prefill_profile" in args.only:
             cfg = get_config("mamba2-370m")
             profile_prefill(torch, np, cfg, init_params(torch, Model, cfg, dev))
+        if "parallel" in args.only:
+            parallel_phase(torch, ops, dev)
         log(f"only {args.only} from {args.src}: done in {time.perf_counter() - t_start:.1f} s")
         return 0
 
@@ -1747,6 +2040,10 @@ def main(argv=None) -> int:
     path_launches["h2o-danube-3-4b"] = swa_phase(torch, np, ops, dev)
     torch.cuda.empty_cache()
     path_launches["jamba-1.5-large-398b/reduced"] = hybrid_phase(torch, np, ops)
+    torch.cuda.empty_cache()
+
+    # 11. the parallel and launch layer: the dry run, and its cells on the card
+    path_launches.update(parallel_phase(torch, ops, dev))
 
     line = kernels_line(results, path_launches, ops)
     log(f"total: {time.perf_counter() - t_start:.1f} s")

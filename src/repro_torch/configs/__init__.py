@@ -1,5 +1,5 @@
 """Architecture configs of the port (its own copy, not the JAX package's)."""
-from .base import ArchConfig  # noqa: F401
+from .base import SHAPES, ArchConfig, ShapeCell, applicable_shapes  # noqa: F401
 from .registry import get_config, list_archs, reduced_config  # noqa: F401
 
 # Import config modules so they register themselves.

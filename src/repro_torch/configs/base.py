@@ -128,3 +128,39 @@ class ArchConfig:
                 f"super-block size {per_block}"
             )
         return self.n_layers // per_block
+
+
+@dataclass(frozen=True)
+class ShapeCell:
+    """One (architecture x input-shape) evaluation cell."""
+
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str  # train | prefill | decode
+
+    @property
+    def is_train(self) -> bool:
+        return self.kind == "train"
+
+
+SHAPES: dict[str, ShapeCell] = {
+    "train_4k": ShapeCell("train_4k", 4096, 256, "train"),
+    "prefill_32k": ShapeCell("prefill_32k", 32768, 32, "prefill"),
+    "decode_32k": ShapeCell("decode_32k", 32768, 128, "decode"),
+    "long_500k": ShapeCell("long_500k", 524288, 1, "decode"),
+}
+
+
+def applicable_shapes(cfg: ArchConfig) -> list[str]:
+    """Which shape cells apply to this arch."""
+    out = ["train_4k", "prefill_32k"]
+    if cfg.causal:  # encoder-only archs have no autoregressive decode
+        out.append("decode_32k")
+        # long_500k needs sub-quadratic attention: SSM, hybrid, or SWA.
+        if (
+            cfg.family in ("ssm", "hybrid")
+            or cfg.sliding_window is not None
+        ):
+            out.append("long_500k")
+    return out

@@ -19,18 +19,40 @@ show that its main path went through the kernels (a block recomputed by
 call ran (``_flash_route``), head dim and mask, e.g. ``"mma_prefill K=80
 non-causal"`` or ``"decode K=120 causal window"``; ``FLASH_ROUTES`` is its
 read-only sum by route.  ``SSD_ROUTES`` splits the SSD-scan launches by
-route (``_ssd_route``).
+route (``_ssd_route``).  ``DTENSOR_CALLS`` counts the calls that came as
+DTensors (below), so that a run can show its launches all came that way.
+
+Two more kinds of tensor reach the wrappers, and neither touches the path
+of a plain CUDA tensor:
+
+* **meta** tensors (the dry run, ``launch/dryrun.py``) take the card's
+  path up to the launch: the same autograd Function, the same checks and
+  outputs (and the SSD scan's workspace), then launch nothing and count
+  nothing.  Each such call is reported to the callbacks in
+  ``META_OBSERVERS`` (``launch/cost.py`` prices it).
+* **DTensors** run the wrapper on each rank's local shard through
+  ``local_map``, with the placements the kernel allows: RMSNorm any that
+  does not split the normalised axis; flash attention batch or heads
+  (q's and k/v's alike), or q's sequence (``sp``), for which k and v are
+  first gathered to the whole sequence; the SSD scan batch or heads.  Any
+  other placement raises: nothing is replicated quietly, and nothing
+  falls back to the plain version.
 """
 from __future__ import annotations
 
 from collections.abc import Mapping
-from typing import Callable, Dict, Iterator, Optional, Sequence, Tuple
+from typing import Callable, Dict, Iterator, List, Optional, Sequence, Tuple
 
 import torch
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+from torch.distributed.tensor.experimental import local_map
 
+from ..dtensor_util import local_range, unsplit
 from . import _build, ref
 
 LAUNCHES: Dict[str, int] = {"rmsnorm": 0, "flash_attention": 0, "ssd_scan": 0}
+# calls through each wrapper's DTensor branch (local_map), whatever the device
+DTENSOR_CALLS: Dict[str, int] = {"rmsnorm": 0, "flash_attention": 0, "ssd_scan": 0}
 FLASH_SHAPES: Dict[str, int] = {}  # keys made by _flash_shape, added at first launch
 _FLASH_ROUTE_CODES = {"fma": 0, "decode": 1, "mma_prefill": 2}  # csrc/flash_attention.cu
 
@@ -65,25 +87,67 @@ _HEAD_DIMS = (64, 80, 120, 128)
 _SSD_SIZES = (16, 32, 64, 128)  # the SSD kernel's P, N and chunk
 _SSD_MMA_SIZES = (64, 128)  # N and chunk of the SSD scan's tensor-core route
 
+# callbacks (name, inputs, outputs) of every wrapper call on meta tensors
+META_OBSERVERS: List[Callable[[str, Dict[str, torch.Tensor], Tuple[torch.Tensor, ...]], None]] = []
+
 
 def reset_launches() -> None:
-    for counts in (LAUNCHES, SSD_ROUTES):
+    for counts in (LAUNCHES, DTENSOR_CALLS, SSD_ROUTES):
         for name in counts:
             counts[name] = 0
     FLASH_SHAPES.clear()
 
 
 def _on_cpu(*tensors: torch.Tensor) -> bool:
-    """True when every tensor lies on the CPU; raises on a mix of devices
-    or on a device other than CPU and CUDA."""
+    """True when every tensor lies on the CPU, False when all lie on one
+    CUDA device or all on the meta device; raises on a mix of devices or
+    on another device."""
     kinds = {t.device.type for t in tensors}
     if kinds == {"cpu"}:
         return True
-    if kinds == {"cuda"} and len({t.device for t in tensors}) == 1:
+    if kinds in ({"cuda"}, {"meta"}) and len({t.device for t in tensors}) == 1:
         return False
     raise ValueError(
-        f"tensors must all lie on the CPU or on one CUDA device, got "
-        f"{sorted(str(t.device) for t in tensors)}"
+        f"tensors must all lie on the CPU, on one CUDA device or on the meta "
+        f"device, got {sorted(str(t.device) for t in tensors)}"
+    )
+
+
+def _on_meta(name: str, inputs: Dict[str, Optional[torch.Tensor]], *outs: torch.Tensor):
+    """The end of a wrapper's card path on meta tensors: report the call to
+    ``META_OBSERVERS`` and return the outputs unlaunched, uncounted."""
+    given = {k: t for k, t in inputs.items() if t is not None}
+    for observe in META_OBSERVERS:
+        observe(name, given, outs)
+    return outs[0] if len(outs) == 1 else outs
+
+
+def _check_placements(name: str, t: DTensor, allowed: Sequence[object]) -> None:
+    for p in t.placements:
+        if p not in allowed:
+            raise ValueError(
+                f"{name}: placement {t.placements} not supported on the kernel "
+                f"(each mesh dim one of {list(allowed)})"
+            )
+
+
+def _whole(name: str, t: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
+    """A plain tensor, or a replicated DTensor's local copy (positions)."""
+    if isinstance(t, DTensor):
+        _check_placements(name, t, (Replicate(),))
+        return t.to_local()
+    return t
+
+
+def _grad_placements(inputs, out) -> Tuple:
+    """``in_grad_placements`` for ``local_map``: an input whole on a mesh
+    dim on which the output is split gets, from each rank, the gradient
+    of that rank's part alone, a partial sum; elsewhere its gradient is
+    placed as the input is."""
+    return tuple(
+        None if p is None else tuple(
+            Partial() if a == Replicate() and b != Replicate() else a for a, b in zip(p, out))
+        for p in inputs
     )
 
 
@@ -170,9 +234,27 @@ def rmsnorm(
     (any leading shape); fp32 statistics, output in x's dtype.  On the
     card: one kernel launch forward; the backward recomputes the plain
     version."""
+    if isinstance(x, DTensor):
+        return _rmsnorm_dtensor(x, scale, eps)
     if _on_cpu(x, scale):
         return ref.rmsnorm_ref(x, scale, eps)
     return _RMSNorm.apply(x, scale, eps)
+
+
+def _rmsnorm_dtensor(x: DTensor, scale, eps: float) -> DTensor:
+    """Each rank normalises its own rows: x sharded on any axis but the
+    last, the scale replicated."""
+    _check_placements("rmsnorm", x, [Replicate()] + [Shard(d) for d in range(x.ndim - 1)])
+    DTENSOR_CALLS["rmsnorm"] += 1
+    rep = (Replicate(),) * x.device_mesh.ndim
+    inputs = (x.placements, rep if isinstance(scale, DTensor) else None)
+    return local_map(
+        lambda x_, s_: rmsnorm(x_, s_, eps),
+        out_placements=list(x.placements),  # a list: one output
+        in_placements=inputs,
+        in_grad_placements=_grad_placements(inputs, x.placements),
+        device_mesh=x.device_mesh,
+    )(x, scale)
 
 
 def _rmsnorm_kernel(x: torch.Tensor, scale: torch.Tensor, eps: float) -> torch.Tensor:
@@ -189,6 +271,8 @@ def _rmsnorm_kernel(x: torch.Tensor, scale: torch.Tensor, eps: float) -> torch.T
     rows = x.numel() // D if D else 0
     if rows == 0:
         return out
+    if x.is_meta:
+        return _on_meta("rmsnorm", {"x": x, "scale": scale}, out)
     err = _build.load().rmsnorm_fwd(
         x.data_ptr(), scale.data_ptr(), out.data_ptr(), rows, D, eps, code,
         _stream(x),
@@ -228,9 +312,61 @@ def flash_attention(
     launch of the kernel ``_flash_route`` names; the backward recomputes
     ``ref.flash_attention_ref`` (the gradient of the fp32 plain function,
     as in the JAX package)."""
+    if isinstance(q, DTensor):
+        return _flash_dtensor(q, k, v, q_pos, kv_pos, causal, window)
     if _on_cpu(q, k, v, q_pos, kv_pos):
         return ref.flash_attention_ref(q, k, v, q_pos, kv_pos, causal, window)
     return _FlashAttention.apply(q, k, v, q_pos, kv_pos, causal, window)
+
+
+def _flash_dtensor(q: DTensor, k: DTensor, v: DTensor, q_pos, kv_pos, causal, window) -> DTensor:
+    """Each rank attends with its own batch rows or query heads.  k and v
+    are first gathered to the whole sequence on every mesh dim that splits
+    it (a cache sharded on its slots).  Where q's heads are split and k/v's
+    are whole (fewer KV heads than ranks), each rank slices out the KV
+    heads its query heads read.  q may be split on its sequence (``sp``),
+    each rank then taking its rows' positions."""
+    if not (isinstance(k, DTensor) and isinstance(v, DTensor)):
+        raise TypeError("flash_attention: q is a DTensor, so k and v must be")
+    mesh = q.device_mesh
+    k, v = unsplit(k, 1), unsplit(v, 1)
+    _check_placements("flash_attention q", q, (Replicate(), Shard(0), Shard(1), Shard(2)))
+    kv_heads_whole = Shard(2) not in k.placements
+    for a, b in zip(q.placements, k.placements):
+        a = Replicate() if a == Shard(1) or (a == Shard(2) and kv_heads_whole) else a
+        if a != b or v.placements != k.placements:
+            raise ValueError(
+                f"flash_attention: q {q.placements} and k/v {k.placements}, "
+                f"{v.placements} are not split alike on batch or heads"
+            )
+    H, G = q.shape[2], k.shape[2]
+    h0, h1 = local_range(q, 2)
+    rep = H // G  # query heads a KV head
+    if kv_heads_whole and ((h1 - h0) % rep and rep % (h1 - h0)):
+        raise ValueError(f"flash_attention: {h1 - h0} query heads a rank, {rep} a KV head")
+    g0, g1 = h0 // rep, (h1 - 1) // rep + 1
+    q_pos, kv_pos = _whole("flash_attention q_pos", q_pos), _whole("flash_attention kv_pos", kv_pos)
+    s0, s1 = local_range(q, 1)
+    q_pos = q_pos[..., s0:s1]
+    if q_pos.ndim == 2:  # per-row positions follow the batch split
+        b0, b1 = local_range(q, 0)
+        q_pos = q_pos[b0:b1]
+
+    DTENSOR_CALLS["flash_attention"] += 1
+
+    def local(q_, k_, v_):
+        if kv_heads_whole and (g0, g1) != (0, G):
+            k_, v_ = k_[:, :, g0:g1].contiguous(), v_[:, :, g0:g1].contiguous()
+        return flash_attention(q_, k_, v_, q_pos, kv_pos, causal, window)
+
+    inputs = (q.placements, k.placements, v.placements)
+    return local_map(
+        local,
+        out_placements=list(q.placements),
+        in_placements=inputs,
+        in_grad_placements=_grad_placements(inputs, q.placements),
+        device_mesh=mesh,
+    )(q, k, v)
 
 
 class _FlashAttention(torch.autograd.Function):
@@ -298,6 +434,9 @@ def _flash_attention_kernel(q, k, v, q_pos, kv_pos, causal, window) -> torch.Ten
     out = torch.empty_like(q)
     if out.numel() == 0:
         return out
+    if q.is_meta:
+        return _on_meta("flash_attention", {"q": q, "k": k, "v": v, "q_pos": q_pos,
+                                            "kv_pos": kv_pos}, out)
     route = _flash_route(Sq, q.dtype)
     err = _build.load().flash_attention_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), q_pos.data_ptr(),
@@ -400,11 +539,44 @@ def ssd_scan(
         raise TypeError("ssd_scan: dt and A must be float32")
     _dtype_code(x.dtype, "ssd_scan")  # raises on a type the kernel does not take
     _dtype_code(out_dtype, "ssd_scan out_dtype")
+    if isinstance(x, DTensor):
+        return _ssd_dtensor(x, dt, A, Bm, Cm, chunk, init_state, out_dtype)
     tensors = (x, dt, A, Bm, Cm) + ((init_state,) if init_state is not None else ())
     if _on_cpu(*tensors):
         y, state = ref.ssd_chunked_ref(x, dt, A, Bm, Cm, chunk, init_state)
         return y.to(out_dtype), state
     return _SSDScan.apply(x, dt, A, Bm, Cm, init_state, chunk, out_dtype)
+
+
+def _ssd_dtensor(x: DTensor, dt, A, Bm, Cm, chunk, init_state, out_dtype):
+    """Each rank scans its own batch rows or heads.  On a mesh dim that
+    splits heads, B and C stay whole and A is split like x's heads (a
+    local slice of the replicated A: no transfer)."""
+    _check_placements("ssd_scan x", x, (Replicate(), Shard(0), Shard(2)))
+    mesh, xp = x.device_mesh, x.placements
+    pick = lambda batch, heads: tuple(  # noqa: E731
+        {Shard(0): batch, Shard(2): heads}.get(p, Replicate()) for p in xp)
+    want = {"dt": pick(Shard(0), Shard(2)), "A": pick(Replicate(), Shard(0)),
+            "B": pick(Shard(0), Replicate()), "C": pick(Shard(0), Replicate()),
+            "init_state": pick(Shard(0), Shard(1)), "y": xp}
+    A = A.redistribute(mesh, want["A"]) if A.placements != want["A"] else A
+    for what, t in (("dt", dt), ("B", Bm), ("C", Cm), ("init_state", init_state)):
+        if t is not None and (not isinstance(t, DTensor) or t.placements != want[what]):
+            raise ValueError(
+                f"ssd_scan: x {xp} needs {what} placed {want[what]}, got "
+                f"{getattr(t, 'placements', 'a plain tensor')}"
+            )
+    state_p = pick(Shard(0), Shard(1))
+    DTENSOR_CALLS["ssd_scan"] += 1
+    inputs = (xp, want["dt"], want["A"], want["B"], want["C"],
+              state_p if init_state is not None else None)
+    return local_map(
+        lambda x_, dt_, A_, B_, C_, s_: ssd_scan(x_, dt_, A_, B_, C_, chunk, s_, out_dtype),
+        out_placements=(xp, state_p),
+        in_placements=inputs,
+        in_grad_placements=_grad_placements(inputs, xp),
+        device_mesh=mesh,
+    )(x, dt, A, Bm, Cm, init_state)
 
 
 class _SSDScan(torch.autograd.Function):
@@ -450,6 +622,9 @@ def _ssd_scan_kernel(x, dt, A, Bm, Cm, chunk, init_state, out_dtype):
     if route == "mma":
         ws = torch.empty(_ssd_workspace_bytes(Bsz, S, H, P, N, chunk),
                          dtype=torch.uint8, device=x.device)
+    if x.is_meta:
+        return _on_meta("ssd_scan", {"x": x, "dt": dt, "A": A, "B": Bm, "C": Cm,
+                                     "init_state": init_state}, y, state)
     err = _build.load().ssd_scan_fwd(
         x.data_ptr(), x.stride(0), x.stride(1), dt.data_ptr(), A.data_ptr(),
         Bm.data_ptr(), Bm.stride(0), Bm.stride(1),

@@ -21,9 +21,13 @@ from typing import Any, Dict, Optional, Tuple, Union
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+from torch.distributed.tensor.experimental import local_map
 
 from ..configs.base import ArchConfig
 from ..kernels import ops
+from ..dtensor_util import local_range, unsplit
+from ..parallel.sharding import replicate_like
 
 Params = Dict[str, Any]
 CacheIndex = Union[int, torch.Tensor, None]
@@ -118,7 +122,7 @@ def rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor
     else:
         angles = pos[:, :, None] * freqs[None, None, :]
     angles = angles[:, :, None, :]  # [1 or B, S, 1, half]
-    cos, sin = torch.cos(angles), torch.sin(angles)
+    cos, sin = replicate_like(torch.cos(angles), x), replicate_like(torch.sin(angles), x)
     x1, x2 = x[..., :half], x[..., half : 2 * half]
     rx1 = x1 * cos - x2 * sin
     rx2 = x2 * cos + x1 * sin
@@ -166,6 +170,8 @@ def _write_cache(
 ) -> None:
     """Write the new k/v and their positions into ``cache`` in place (the
     JAX version returns a new pytree instead)."""
+    if isinstance(cache["k"], DTensor):
+        return _write_sharded_cache(cache, k, v, q_pos, cache_index, window)
     ck, cv, cpos = cache["k"], cache["v"], cache["pos"]
     W = ck.shape[1]  # buffer length (ring if SWA)
     B, S = k.shape[:2]
@@ -202,6 +208,51 @@ def _write_cache(
         ck.index_copy_(1, idx, k.to(ck.dtype))
         cv.index_copy_(1, idx, v.to(cv.dtype))
         cpos.index_copy_(1, idx, q_pos.to(torch.int32)[None, :])
+
+
+def _write_sharded_cache(
+    cache: Params,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    q_pos: torch.Tensor,
+    cache_index: CacheIndex,
+    window: Optional[int],
+) -> None:
+    """``_write_cache`` on each rank's shard of a DTensor cache (DTensor's
+    own index_copy_ would gather the cache): the new k/v are first placed
+    as the cache's batch and heads.  A cache split on its slots takes, on
+    each rank, the new rows whose slots it holds; their slots come from
+    host integers, so such a cache needs a Python int ``cache_index``."""
+    ck, cv, cpos = cache["k"], cache["v"], cache["pos"]
+    if cpos.placements != tuple(Replicate() for _ in cpos.placements):
+        raise ValueError(f"cache positions must be replicated, got {cpos.placements}")
+    mesh = ck.device_mesh
+    want = [Replicate() if p == Shard(1) else p for p in ck.placements]
+    k, v = k.redistribute(mesh, want).to_local(), v.redistribute(mesh, want).to_local()
+    lk, lv, lpos = ck.to_local(), cv.to_local(), cpos.full_tensor()
+    if Shard(1) not in ck.placements:
+        b0, b1 = local_range(ck, 0)
+        if q_pos.ndim == 2:  # per-row decode: this rank's rows
+            q_pos, cache_index = q_pos[b0:b1], cache_index[b0:b1]
+        _write_cache({"k": lk, "v": lv, "pos": lpos}, k, v, q_pos, cache_index, window)
+    else:
+        if not isinstance(cache_index, int):
+            raise ValueError("a cache split on its slots needs a Python int cache_index")
+        W, S = ck.shape[1], k.shape[1]
+        w0, w1 = local_range(ck, 1)
+        if S >= W:  # the last W rows fill the buffer, row S - W + j in slot j
+            if S % W:
+                raise ValueError("SWA prefill length must be a multiple of W")
+            start, k, v, q_pos = 0, k[:, -W:], v[:, -W:], q_pos[-W:]
+        else:
+            slot = cache_index % W if window is not None else cache_index
+            start = min(max(slot, 0), W - S)
+        lo, hi = max(start, w0), min(start + k.shape[1], w1)
+        if lo < hi:
+            lk[:, lo - w0 : hi - w0] = k[:, lo - start : hi - start].to(lk.dtype)
+            lv[:, lo - w0 : hi - w0] = v[:, lo - start : hi - start].to(lv.dtype)
+        lpos[:, start : start + k.shape[1]] = q_pos.to(torch.int32)[None, :]
+    cpos.to_local().copy_(lpos)
 
 
 def apply_attention(
@@ -313,6 +364,62 @@ def unembed(p: Params, cfg: ArchConfig, x: torch.Tensor) -> torch.Tensor:
     return x @ p["unembed"]
 
 
+class _TakeLast(torch.autograd.Function):
+    """``x[..., idx]`` for ``idx`` of x's shape less its last axis.  The
+    backward scatters into zeros in place, as autograd's own gather
+    backward does unless a dispatch mode is active, when it scatters out
+    of place into one more buffer of x's size: the dry run's counting mode
+    would then see a peak that the run itself does not reach.  x is not
+    kept for the backward, only its shape."""
+
+    @staticmethod
+    def forward(ctx, x, idx):
+        ctx.save_for_backward(idx)
+        ctx.shape = x.shape
+        return torch.gather(x, -1, idx[..., None])[..., 0]
+
+    @staticmethod
+    def backward(ctx, g):
+        (idx,) = ctx.saved_tensors
+        out = torch.zeros(ctx.shape, dtype=g.dtype, device=g.device)
+        return out.scatter_add_(-1, idx[..., None], g[..., None]), None
+
+
+def _logsumexp(logits: torch.Tensor) -> torch.Tensor:
+    """``logsumexp`` over the last axis.  On a DTensor, as the max and the
+    sum of exponentials, each reduced over the vocabulary's shards:
+    DTensor's own logsumexp would first gather the batch."""
+    if not isinstance(logits, DTensor):
+        return torch.logsumexp(logits, dim=-1)
+    m = unsplit(logits.amax(dim=-1, keepdim=True).detach(), -1)  # its gradient cancels
+    s = unsplit(torch.exp(logits - m).sum(-1, keepdim=True), -1)
+    return (m + torch.log(s))[..., 0]
+
+
+def _gold_logits(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """``logits[..., labels]``.  On a DTensor each rank gathers from its own
+    shard of the vocabulary (zeros for labels outside it) and the ranks'
+    parts are summed: DTensor's own gather would first gather the batch."""
+    if not isinstance(logits, DTensor):
+        return torch.gather(logits, -1, labels[..., None])[..., 0]
+    mesh, lp = logits.device_mesh, logits.placements
+    v0, v1 = local_range(logits, logits.ndim - 1)
+    vocab = Shard(logits.ndim - 1)
+    want = [Replicate() if p == vocab else p for p in lp]
+    labels = replicate_like(labels, logits)
+    labels = labels.redistribute(mesh, want) if labels.placements != tuple(want) else labels
+
+    def local(lg, lb):
+        inside = (lb >= v0) & (lb < v1)
+        return _TakeLast.apply(lg, torch.where(inside, lb - v0, 0)) * inside
+
+    gold = local_map(
+        local, out_placements=[Partial() if p == vocab else p for p in lp],
+        in_placements=(lp, tuple(want)), device_mesh=mesh,
+    )(logits, labels)
+    return gold.redistribute(mesh, want)
+
+
 def cross_entropy(
     logits: torch.Tensor,  # [B,S,V]
     labels: torch.Tensor,  # [B,S]; -1 = ignore
@@ -322,8 +429,8 @@ def cross_entropy(
     logits = logits.float()
     mask = (labels >= 0).float()
     safe = labels.clamp(min=0).long()
-    lse = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1, safe[..., None])[..., 0]
+    lse = _logsumexp(logits)
+    gold = _gold_logits(logits, safe)
     nll = (lse - gold) * mask
     denom = mask.sum().clamp(min=1.0)
     return nll.sum() / denom, denom

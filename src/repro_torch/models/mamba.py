@@ -23,9 +23,13 @@ from typing import Any, Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor
 
 from ..configs.base import ArchConfig
 from ..kernels import ops
+from ..parallel import opt_flags
+from ..parallel import sharding as sh
+from ..dtensor_util import unsplit
 from . import layers as L
 
 Params = Dict[str, Any]
@@ -61,8 +65,10 @@ def _split_proj(cfg: ArchConfig, proj: torch.Tensor):
 def _causal_conv(xbc: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """silu of the depthwise causal conv over the sequence, in fp32.
     xbc [B,S,Ch] (zero-padded by k-1 on the left), w [k,Ch], b [Ch]."""
-    k, S = w.shape[0], xbc.shape[1]
-    xp = F.pad(xbc.float(), (0, 0, k - 1, 0))
+    k, (B, S, Ch) = w.shape[0], xbc.shape
+    # zeros concatenated, not F.pad: DTensor's pad on a 2-D mesh gives a
+    # result placed on one mesh dim (torch 2.11), which the next view rejects
+    xp = torch.cat([xbc.new_zeros((B, k - 1, Ch), dtype=torch.float32), xbc.float()], dim=1)
     wf = w.float()
     out = b.float() + xp[:, :S] * wf[0]
     for i in range(1, k):
@@ -75,7 +81,8 @@ def _gate_and_project(
 ) -> torch.Tensor:
     """rms_norm(y * silu(z)) @ out_proj, for y and z [B,S,di] in x's dtype."""
     B, S, di = y.shape
-    y = L.rms_norm(y * F.silu(z), p["norm"])
+    # the norm needs all of d_inner: gathered where tensor parallelism split it
+    y = L.rms_norm(unsplit(y * F.silu(z), -1), p["norm"])
     return (y.reshape(B * S, di) @ p["out_proj"]).view(B, S, -1)
 
 
@@ -98,6 +105,13 @@ def apply_mamba(
     Cm = xbc[..., di + N :]
     dt = F.softplus(dt_raw.float() + p["dt_bias"])
     A = -torch.exp(p["A_log"])
+    if opt_flags.get("mamba_heads") and isinstance(xh, DTensor) \
+            and sh.maybe(xh.device_mesh, H, "model"):
+        # the reference's sharding constraint: the scan's heads split over
+        # `model`, so its per-chunk buffers shrink with the TP degree
+        b = opt_flags.get("batch_axes")
+        xh = sh.constrain(xh, (b, None, "model", None))
+        dt = sh.constrain(dt, (b, None, "model"))
     y, state = ops.ssd_scan(xh, dt, A, Bm, Cm, cfg.ssm_chunk, out_dtype=torch.float32)
     # the D skip in fp32, then x's dtype (as the reference orders it)
     y = (y + p["D"][:, None] * xh.float()).reshape(B, S, di).to(x.dtype)

@@ -10,6 +10,12 @@ or ``none``; a hybrid block is a super-block of ``attn_period`` of them).
 (``torch.utils.checkpoint``, the JAX package's ``jax.checkpoint`` with
 ``nothing_saveable``).
 
+The same code runs on DTensors: params placed by
+``parallel.sharding.param_shardings`` and a batch by ``batch_shardings``
+(``parallel.sharding.distribute``).  DTensor then picks each op's
+placements from its inputs', and the model pins the residual stream
+(``Model._constrain``) as the reference constrains it.
+
 Batch dicts per family, as in the JAX package:
   dense/moe/ssm/hybrid : {"tokens": [B,S] i32, "labels": [B,S] i32}
   vlm   : {"tokens": [B,S_text], "labels": [B,S_text],
@@ -22,9 +28,13 @@ from typing import Any, Dict, List, Optional, Tuple, Union
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor, Shard
+from torch.distributed.tensor.experimental import local_map
 from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ArchConfig
+from ..parallel import opt_flags
+from ..parallel import sharding as sh
 from . import layers as L
 from . import mamba as M
 from . import moe as X
@@ -35,7 +45,7 @@ Spec = Dict[str, Any]
 def resolve_device(device: Union[str, torch.device]) -> torch.device:
     """The device an entry point runs on.  ``"cuda"`` needs a CUDA device
     and raises without one: nothing carries on on the CPU unless the
-    caller asked for it."""
+    caller asked for it.  ``"meta"`` computes shapes only (the dry run)."""
     dev = torch.device(device)
     if dev.type == "cuda":
         if not torch.cuda.is_available():
@@ -45,15 +55,24 @@ def resolve_device(device: Union[str, torch.device]) -> torch.device:
             )
         if dev.index is None:
             dev = torch.device("cuda", torch.cuda.current_device())
-    elif dev.type != "cpu":
-        raise ValueError(f"device must be cuda or cpu, got {dev}")
+    elif dev.type not in ("cpu", "meta"):
+        raise ValueError(f"device must be cuda, cpu or meta, got {dev}")
     return dev
 
 
-def _index(tree: Params, i: int) -> Params:
-    """Block ``i`` of a stacked tree: views, so in-place cache writes land
-    in the stacked tensors."""
-    return {k: _index(v, i) if isinstance(v, dict) else v[i] for k, v in tree.items()}
+def _unbind(v: torch.Tensor) -> Tuple[torch.Tensor, ...]:
+    """``torch.unbind(v)`` over the leading (block) axis.  A DTensor is
+    unbound on each rank's shard (``local_map``): DTensor's own unbind
+    (and select) would first gather every shard of the stack."""
+    if not isinstance(v, DTensor):
+        return torch.unbind(v)
+    if Shard(0) in v.placements or any(p.is_partial() for p in v.placements):
+        raise ValueError(f"a stacked leaf split on its block axis: {v.placements}")
+    out = [Shard(p.dim - 1) if isinstance(p, Shard) else p for p in v.placements]
+    return local_map(
+        torch.unbind, out_placements=tuple([out] * v.shape[0]),
+        in_placements=(v.placements,), device_mesh=v.device_mesh,
+    )(v)
 
 
 def _unstack(tree: Params, n: int) -> List[Params]:
@@ -63,7 +82,7 @@ def _unstack(tree: Params, n: int) -> List[Params]:
     ``n`` zero-padded copies as separate ``v[i]`` views would give."""
     blocks: List[Params] = [{} for _ in range(n)]
     for k, v in tree.items():
-        parts = _unstack(v, n) if isinstance(v, dict) else torch.unbind(v)
+        parts = _unstack(v, n) if isinstance(v, dict) else _unbind(v)
         for block, part in zip(blocks, parts):
             block[k] = part
     return blocks
@@ -79,9 +98,11 @@ def _apply_sub(
     cache: Optional[Params],
     cache_index: L.CacheIndex,
     decode: bool,
+    constrain=lambda h: h,
 ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """One sub-layer; returns (h, aux), aux the MoE load-balance term of
-    an ``moe`` ff and None for the others."""
+    an ``moe`` ff and None for the others.  ``constrain`` places the
+    residual after each of the two adds."""
     y = L.rms_norm(h, sub["ln1"])
     if mixer == "attn":
         # prefill attends over its own k/v; decode over the cache
@@ -93,14 +114,14 @@ def _apply_sub(
         y = M.apply_mamba_decode(sub["mamba"], cfg, y, cache)
     else:
         y = M.apply_mamba(sub["mamba"], cfg, y, cache)
-    h = h + y
+    h = constrain(h + y)
     if ff == "none":
         return h, None
     y = L.rms_norm(h, sub["ln2"])
     if ff == "moe":
         y, aux = X.apply_moe(sub["moe"], cfg, y)
-        return h + y, aux
-    return h + L.apply_mlp(sub["mlp"], cfg, y), None
+        return constrain(h + y), aux
+    return constrain(h + L.apply_mlp(sub["mlp"], cfg, y)), None
 
 
 def param_spec(cfg: ArchConfig) -> Spec:
@@ -150,6 +171,28 @@ class Model:
         # token table is read only when tied to the unembedding
         untied_audio = cfg.family == "audio" and not cfg.tie_embeddings
         self.unread_by_loss = frozenset({"embed/tokens"} if untied_audio else ())
+        # Optional spec of the [B, S, D] residual stream at block boundaries
+        # (Megatron-style sequence parallelism: S over the tensor-parallel
+        # axis).  Set by launch/dryrun.py --opt sp.
+        self.act_spec = None
+
+    def _constrain(self, h: torch.Tensor, sub: bool = False) -> torch.Tensor:
+        """The residual stream placed as the reference constrains it (a
+        no-op on a plain tensor): ``act_spec`` when set, and after each
+        sublayer ``(batch, "model", None)`` under ``sp_sub``.  Any other
+        DTensor residual is pinned to the batch split, the sharding XLA
+        keeps from the inputs; DTensor, which places op by op, would
+        otherwise leave it split on D after the embedding lookup."""
+        if not isinstance(h, DTensor):
+            return h
+        seq = h.ndim == 3 and h.shape[1] > 1
+        if sub and seq and opt_flags.get("sp_sub"):
+            spec = (opt_flags.get("batch_axes"), "model", None)
+        elif seq and self.act_spec is not None:
+            spec = self.act_spec
+        else:
+            spec = (sh.batch_axes(h.device_mesh, h.shape[0]),) + (None,) * (h.ndim - 1)
+        return sh.constrain(h, spec)
 
     def init(self, generator: torch.Generator) -> Params:
         """Random params drawn from ``generator``, which must live on the
@@ -179,11 +222,12 @@ class Model:
         decode: bool,
     ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
         aux_total = None
+        block = sh.gather_fsdp(block)  # inside remat: gathered again for the backward
         for j, (mixer, ff) in enumerate(self.kinds):
             h, aux = _apply_sub(
                 block[f"sub{j}"], self.cfg, mixer, ff, h, q_pos,
                 block_cache[f"sub{j}"] if block_cache else None,
-                cache_index, decode,
+                cache_index, decode, lambda h: self._constrain(h, sub=True),
             )
             if aux is not None:
                 aux_total = aux if aux_total is None else aux_total + aux
@@ -206,6 +250,9 @@ class Model:
         if remat and cache is not None:
             raise ValueError("remat recomputes blocks; it takes no cache")
         aux_total = None
+        h = self._constrain(h)
+        # views, so in-place cache writes land in the stacked tensors
+        caches = _unstack(cache, self.n_blocks) if cache is not None else None
         for i, block in enumerate(_unstack(params["blocks"], self.n_blocks)):
             if remat:
                 # no block draws random numbers: no RNG state to replay
@@ -214,8 +261,9 @@ class Model:
                     use_reentrant=False, preserve_rng_state=False,
                 )
             else:
-                block_cache = _index(cache, i) if cache is not None else None
+                block_cache = caches[i] if caches is not None else None
                 h, aux = self._block(block, h, q_pos, block_cache, cache_index, decode)
+            h = self._constrain(h)
             if aux is not None:
                 aux_total = aux if aux_total is None else aux_total + aux
         return h, aux_total
@@ -230,6 +278,7 @@ class Model:
         the batch has them) before the text tokens; the other families
         embed their tokens."""
         dt = L.dtype_of(self.cfg)
+        params = sh.gather_fsdp({k: v for k, v in params.items() if k != "blocks"})
         if self.cfg.family == "audio":
             frames = batch["frames"]
             B, S, F_ = frames.shape
@@ -260,7 +309,7 @@ class Model:
         h = L.rms_norm(h, params["final_norm"])
         if n_prefix:
             h = h[:, n_prefix:]
-        logits = L.unembed(params["embed"], self.cfg, h)
+        logits = L.unembed(sh.gather_fsdp(params["embed"]), self.cfg, h)
         xent, n_tok = L.cross_entropy(logits, batch["labels"])
         if aux is None:
             aux = torch.zeros((), dtype=torch.float32, device=h.device)
@@ -301,7 +350,7 @@ class Model:
         q_pos = torch.arange(S, dtype=torch.int32, device=h.device)
         h, _ = self._backbone(params, h, q_pos, cache=cache, cache_index=0)
         h = L.rms_norm(h, params["final_norm"])
-        return L.unembed(params["embed"], self.cfg, h[:, -1:, :]), cache
+        return L.unembed(sh.gather_fsdp(params["embed"]), self.cfg, h[:, -1:, :]), cache
 
     def decode_step(
         self,
@@ -316,15 +365,31 @@ class Model:
         serving engine's continuous-refill loop).  The cache is updated in
         place and returned.  The new token is a text token in every
         family, embedded from the token table (as in the JAX package)."""
-        h = L.embed_tokens(params["embed"], tokens)
+        h = L.embed_tokens(sh.gather_fsdp(params["embed"]), tokens)
+        index = pos  # a Python int stays one: the cache slot needs no device value
         pos = torch.as_tensor(pos, dtype=torch.int32, device=h.device)
         q_pos = pos[None] if pos.ndim == 0 else pos[:, None]
-        h, _ = self._backbone(params, h, q_pos, cache=cache, cache_index=pos, decode=True)
+        h, _ = self._backbone(params, h, q_pos, cache=cache, cache_index=index, decode=True)
         h = L.rms_norm(h, params["final_norm"])
-        return L.unembed(params["embed"], self.cfg, h), cache
+        return L.unembed(sh.gather_fsdp(params["embed"]), self.cfg, h), cache
 
 
 def n_params(params: Params) -> int:
     return sum(
         v.numel() if torch.is_tensor(v) else n_params(v) for v in params.values()
     )
+
+
+def active_params(cfg: ArchConfig, params: Params) -> int:
+    """Active (per-token) params: total minus inactive expert fraction."""
+    total = n_params(params)
+    if cfg.n_experts == 0:
+        return total
+    expert = 0
+    blocks = params["blocks"]
+    for i, (_mixer, ff) in enumerate(cfg.layer_kinds()):
+        if ff == "moe":
+            moe_p = blocks[f"sub{i}"]["moe"]
+            expert += sum(moe_p[k].numel() for k in ("w_up", "w_gate", "w_down"))
+    inactive = expert * (1.0 - cfg.top_k / cfg.n_experts)
+    return int(total - inactive)

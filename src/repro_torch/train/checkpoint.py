@@ -88,11 +88,27 @@ def restore(
     state_template: Any,
     step: Optional[int] = None,
     device: Union[str, torch.device, None] = None,
+    shardings: Any = None,
+    mesh=None,
 ) -> Tuple[Any, dict]:
     """Restore into the template's structure, shapes and dtypes (a
     template on the meta device will do, as from
     ``train_step.train_state_template``).  Leaves land on ``device``,
-    default each template leaf's own.  Returns (state, meta)."""
+    default each template leaf's own.  ``shardings``: a tree of
+    placements (``parallel.sharding``) that places each leaf on ``mesh``
+    as a DTensor (``sharding.distribute``), on the mesh's device type, for
+    a mesh that may differ from the one that saved it.  Returns (state,
+    meta)."""
+    if shardings is not None:
+        if mesh is None:
+            raise ValueError("restore: shardings= needs mesh=")
+        from ..parallel.sharding import distribute
+
+        dev = torch.device(mesh.device_type)
+        if dev.type == "cuda":
+            dev = torch.device("cuda", torch.cuda.current_device())
+        state, meta = restore(ckpt_dir, state_template, step, dev)
+        return distribute(state, shardings, mesh), meta
     ckpt_dir = Path(ckpt_dir)
     step = step if step is not None else latest_step(ckpt_dir)
     if step is None:

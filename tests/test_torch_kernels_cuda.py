@@ -689,3 +689,111 @@ def test_vlm_and_audio_inputs_on_card_match_cpu(cuda_device, arch, head_dim):
     torch.testing.assert_close(l_g.cpu(), l_c, atol=1e-4, rtol=1e-4)
     loss_c, loss_g = cpu.loss(p_cpu, b)[0], gpu.loss(p_gpu, b_gpu)[0]
     torch.testing.assert_close(loss_g.cpu(), loss_c, atol=1e-5, rtol=1e-5)
+
+
+# --------------------------------------------------------------------------
+# DTensors on a one-rank mesh, and the meta device
+# --------------------------------------------------------------------------
+
+
+@pytest.fixture(scope="module")
+def one_rank_mesh():
+    """A (1, 1) ("data", "model") cuda mesh on a one-rank NCCL group (a
+    FileStore: no network), destroyed after the module's tests."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: NCCL and the kernels run on the card")
+    import tempfile
+
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group("nccl", store=dist.FileStore(f"{tmp}/store", 1), rank=0,
+                                world_size=1, device_id=torch.device("cuda", 0))
+        try:
+            yield init_device_mesh("cuda", (1, 1), mesh_dim_names=("data", "model"))
+        finally:
+            dist.destroy_process_group()
+
+
+def _route_inputs(route, dev):
+    """(wrapper, plain-tensor args, kwargs) of one kernel route on the card."""
+    gen = torch.Generator(device=dev).manual_seed(7)
+    rnd = lambda *s, dt=torch.bfloat16: torch.randn(s, generator=gen, device=dev).to(dt)  # noqa: E731
+    if route.startswith("rmsnorm"):
+        D = 4096 if route == "rmsnorm row" else 1000
+        return ops.rmsnorm, (rnd(4, 8, D), rnd(D, dt=torch.float32)), {}
+    if route.startswith("flash"):
+        Sq = 1 if route == "flash decode" else 64
+        dt = torch.float32 if route == "flash fma" else torch.bfloat16
+        pos = torch.arange(64, dtype=torch.int32, device=dev)
+        return ops.flash_attention, (rnd(2, Sq, 8, 128, dt=dt), rnd(2, 64, 2, 128, dt=dt),
+                                     rnd(2, 64, 2, 128, dt=dt), pos[64 - Sq:], pos), {}
+    dt = torch.float32 if route == "ssd fma" else torch.bfloat16
+    return ops.ssd_scan, (rnd(2, 256, 4, 64, dt=dt), torch.rand(2, 256, 4, generator=gen, device=dev),
+                          -torch.rand(4, generator=gen, device=dev), rnd(2, 256, 128, dt=dt),
+                          rnd(2, 256, 128, dt=dt), 128), {}
+
+
+ROUTES = ["rmsnorm row", "rmsnorm general", "flash decode", "flash mma_prefill", "flash fma",
+          "ssd mma", "ssd fma"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("route", ROUTES)
+def test_dtensor_forward_equals_plain_bit_for_bit(one_rank_mesh, route):
+    """Each route on replicated DTensors of a (1, 1) mesh: one launch
+    through the DTensor branch (local_map), the same bits as on the plain
+    tensors."""
+    from torch.distributed.tensor import DTensor, distribute_tensor
+
+    fn, args, kw = _route_inputs(route, torch.device("cuda"))
+    want = fn(*args, **kw)
+    placed = [distribute_tensor(a, one_rank_mesh) if torch.is_tensor(a) and a.ndim and
+              not (fn is ops.flash_attention and a.dtype == torch.int32) else a for a in args]
+    n, calls = dict(ops.LAUNCHES), dict(ops.DTENSOR_CALLS)
+    got = fn(*placed, **kw)
+    torch.cuda.synchronize()
+    name = {ops.rmsnorm: "rmsnorm", ops.flash_attention: "flash_attention", ops.ssd_scan: "ssd_scan"}[fn]
+    assert ops.LAUNCHES[name] == n[name] + 1 and ops.DTENSOR_CALLS[name] == calls[name] + 1
+    for g, w in zip(got if isinstance(got, tuple) else (got,), want if isinstance(want, tuple) else (want,)):
+        assert isinstance(g, DTensor)
+        assert torch.equal(g.to_local(), w), route
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("route", ROUTES)
+def test_meta_branch_gives_the_kernels_shapes(cuda_device, route):
+    """On meta copies of the inputs each wrapper returns what the kernel
+    returns, in shape and dtype, and launches and counts nothing."""
+    fn, args, kw = _route_inputs(route, cuda_device)
+    want = fn(*args, **kw)
+    meta = [a.to("meta") if torch.is_tensor(a) else a for a in args]
+    n = dict(ops.LAUNCHES)
+    got = fn(*meta, **kw)
+    assert ops.LAUNCHES == n
+    for g, w in zip(got if isinstance(got, tuple) else (got,), want if isinstance(want, tuple) else (want,)):
+        assert g.is_meta and g.shape == w.shape and g.dtype == w.dtype, route
+
+
+@pytest.mark.cuda
+def test_expert_parallel_moe_at_model_one_equals_apply_moe(one_rank_mesh):
+    """apply_moe_shard_map with one model rank: the output and aux of
+    apply_moe bit for bit, in bf16, some pairs dropped; grads finite."""
+    from torch.distributed.tensor import distribute_tensor
+
+    from repro_torch.configs import reduced_config
+    from repro_torch.models import moe
+
+    cfg = reduced_config("qwen3-moe-30b-a3b", dtype="bfloat16", capacity_factor=0.5)
+    dev = torch.device("cuda")
+    p = moe.init_moe(torch.Generator(device=dev).manual_seed(0), cfg)
+    x = torch.randn(2, 37, cfg.d_model, generator=torch.Generator(device=dev).manual_seed(1),
+                    device=dev).to(torch.bfloat16)
+    y, aux = moe.apply_moe(p, cfg, x)
+    dp = {k: distribute_tensor(v, one_rank_mesh).requires_grad_() for k, v in p.items()}
+    dy, daux = moe.apply_moe_shard_map(dp, cfg, distribute_tensor(x, one_rank_mesh), one_rank_mesh, None)
+    assert torch.equal(dy.to_local(), y) and torch.equal(daux.to_local(), aux)
+    assert not moe.route(p["router"], cfg, x.reshape(-1, cfg.d_model)).keep.all()
+    grads = torch.autograd.grad(dy.to_local().float().sum() + daux.to_local(), list(dp.values()))
+    assert all(bool(g.to_local().isfinite().all()) for g in grads)
