@@ -102,13 +102,24 @@ Phases (any failure exits non-zero):
                 PEAK_BAND), FLOPs and roofline time against the median of 5
                 steps, and every step's launches by kernel, route, head dim
                 and mask, all through the wrappers' DTensor branch.
+ 12. sched    — the main path's last link: the port's scheduler core
+                (repro_torch.core, numpy on the host) runs the --serve
+                regime of benchmarks/sched_scale.py (400 jobs, 16 servers,
+                one diurnal stream of 100 requests/s, SLO 0.2 s) on the
+                default service curve, where both schedule digests must
+                equal benchmarks/BENCH_serve_baseline.json's, then on the
+                curves calibrated in phases 6 (deepseek-7b) and 8
+                (qwen3-moe-30b-a3b): SLO attainment, p50/p99, train
+                interference, preemptions, digests and wall time for each,
+                beside the card's name and power limit.
 Then one line {"kernels": [...]} and, last, {"ok": true, "device": {...}}.
 
     python3 chip_smoke.py --only rmsnorm,ssd,prefill_profile --src DIR
 
-runs phases 1-3 for the named kernels (and the profiled prefill, or phase
-11 for "parallel") on the port in DIR/src, then stops: two trees' kernels
-timed in one chip call.
+runs phases 1-3 for the named kernels (and the profiled prefill, phase 11
+for "parallel", or for "sched" deepseek-7b's calibrated curve and phase 12
+on it) on the port in DIR/src, then stops: two trees' kernels timed in one
+chip call.
 
 Imports nothing of JAX or of the JAX package.
 """
@@ -804,6 +815,8 @@ def profile_prefill(torch, np, cfg, params, S: int = 300):
 
 
 def calibrate_phase(cfg, params, card):
+    """The decode-step latency curve of ``cfg``'s engine on the card, logged
+    and returned (phase 12 runs the scheduler on it)."""
     from repro_torch.serve.engine import ServeEngine
     from repro_torch.serve.latency import calibrate
 
@@ -814,6 +827,7 @@ def calibrate_phase(cfg, params, card):
         f"(1, 8, 32, 128), 24 steps each: base {curve.base!r} s, per_req {curve.per_req!r} s "
         f"({time.perf_counter() - t0:.1f} s); step_time(b) ms: "
         + ", ".join(f"{b}: {curve.step_time(b) * 1e3:.3f}" for b in (1, 8, 32, 128)))
+    return curve
 
 
 # --------------------------------------------------------------------------
@@ -947,7 +961,8 @@ def small_moe_against_cpu(torch, np, ops):
 
 
 def moe_phase(torch, np, ops, dev, card):
-    """Main path 5 and its checks.  Returns its launches."""
+    """Main path 5 and its checks.  Returns its launches and its calibrated
+    curve."""
     import dataclasses
 
     from repro_torch.configs import get_config
@@ -964,8 +979,7 @@ def moe_phase(torch, np, ops, dev, card):
         torch, np, dataclasses.replace(cfg, capacity_factor=float(cfg.n_experts)), params)
     small_moe_against_cpu(torch, np, ops)
     profile_decode(torch, cfg, params, bounds=moe_weight_bytes(cfg, params, 4))
-    calibrate_phase(cfg, params, card)
-    return counts
+    return counts, calibrate_phase(cfg, params, card)
 
 
 # --------------------------------------------------------------------------
@@ -1864,6 +1878,107 @@ def parallel_phase(torch, ops, dev):
     return launches
 
 
+# --------------------------------------------------------------------------
+# phase 12: the scheduler on the card's curves
+# --------------------------------------------------------------------------
+
+# The --serve regime of benchmarks/sched_scale.py:1079-1156, restated here
+# because this script imports nothing of benchmarks/ (which imports the JAX
+# package's scheduler); tests/test_torch_sched.py holds the two equal.  400
+# training jobs on the 16-server mixed cluster, 2 x 12 s of horizon a job,
+# and one diurnal request stream of 100 requests/s with a 0.2 s SLO, served
+# by up to 4 replicas of 8 GPUs at batch 8; A-SRPT runs matmul-free
+# (refine_mapping=False), so that its digests hold on any machine.
+SERVE_JOBS = 400
+SERVE_NUM_SERVERS = 16
+SERVE_SECONDS_PER_JOB = 2 * 12.0
+SERVE_RATE = 100.0
+SERVE_SLO = 0.2
+SERVE_GPUS = 8
+SERVE_MAX_REPLICAS = 4
+SERVE_MAX_BATCH = 8
+SERVE_TRACE = dict(seed=3, single_gpu_frac=0.3, max_gpus_per_job=32, mean_iters=400,
+                   sigma_iters=1.6)
+# the regime's committed digests (benchmarks/BENCH_serve_baseline.json), read as data
+SERVE_BASELINE = ROOT / "benchmarks" / "BENCH_serve_baseline.json"
+
+
+def serve_regime(core, n_jobs=SERVE_JOBS, curve=None):
+    """The --serve regime through the scheduler package ``core``: the
+    train-only run and the mixed run (the same jobs and the request
+    stream), the stream priced by ``curve`` (a ``BatchLatencyModel``) or,
+    with None, by ``RequestStream``'s default curve."""
+    cluster = core.mixed_cluster_spec(num_servers=SERVE_NUM_SERVERS, seed=0)
+    horizon = n_jobs * SERVE_SECONDS_PER_JOB
+    jobs = core.generate_trace(core.TraceConfig(n_jobs=n_jobs, horizon=horizon, **SERVE_TRACE))
+    svc = {} if curve is None else {"svc_base": curve.batch_base, "svc_per_req": curve.batch_per_req}
+    stream = core.RequestStream(
+        stream_id=0, rate=SERVE_RATE, duration=horizon, slo=SERVE_SLO, diurnal_amplitude=0.5,
+        diurnal_period=horizon, gpus=SERVE_GPUS, max_replicas=SERVE_MAX_REPLICAS,
+        max_batch=SERVE_MAX_BATCH, seed=0, **svc)
+
+    def policy():
+        return core.ASRPTPolicy(core.make_predictor("mean"), tau=2.0, refine_mapping=False)
+
+    base = core.simulate(core.Scenario(jobs=jobs, cluster=cluster), policy(), validate=False)
+    mixed = core.simulate(core.Scenario(jobs=jobs, cluster=cluster, request_streams=(stream,)),
+                          policy(), validate=False)
+    return base, mixed
+
+
+def serve_summary(base, mixed) -> dict:
+    """What the --serve regime reports of a train-only and a mixed run."""
+    return {
+        "slo_attainment": mixed.slo_attainment, "n_slo_met": mixed.n_slo_met,
+        "n_requests": mixed.n_requests,
+        "p50_s": mixed.request_latency_percentile(50.0),
+        "p99_s": mixed.request_latency_percentile(99.0),
+        "train_interference": mixed.total_flow_time / base.total_flow_time,
+        "n_preemptions": mixed.n_preemptions, "n_jobs": mixed.n_jobs,
+        "sha256": mixed.schedule_digest(), "train_sha256": base.schedule_digest(),
+    }
+
+
+def sched_phase(card, curves):
+    """The main path's last link: the port's scheduler core runs the
+    --serve regime on ``RequestStream``'s default curve, where its digests
+    must be the committed ones, then on each curve calibrated on the card
+    in this run (``curves``: config name -> ``BatchLatencyModel``).  Host
+    work only: it launches no kernel.  An SLO that a card curve misses is
+    logged, not failed: the regime is not retuned to pass."""
+    import math
+
+    from repro_torch import core
+
+    want = json.loads(SERVE_BASELINE.read_text())
+    want_train = next(r["train_sha256"] for r in want["rows"] if "train_sha256" in r)
+    default = None
+    for name, curve in {"default": None, **curves}.items():
+        t0 = time.perf_counter()
+        got = serve_summary(*serve_regime(core, curve=curve))
+        wall = time.perf_counter() - t0
+        svc = ({} if curve is None else
+               {"base": curve.base, "per_req": curve.per_req,
+                "tokens_per_request": curve.tokens_per_request,
+                "svc_base": curve.batch_base, "svc_per_req": curve.batch_per_req})
+        log("sched: " + json.dumps({"curve": name, **svc, **got, "wall_s": wall, "card": card}))
+        if curve is None:
+            assert (got["sha256"], got["train_sha256"]) == (want["sha256"], want_train), \
+                f"the port's scheduler drifted from {SERVE_BASELINE.name}: {got}"
+            assert got["n_requests"] == want["n_requests"], got
+            default = got
+            continue
+        # the same jobs and arrivals as the default run: only the service curve differs
+        assert got["train_sha256"] == default["train_sha256"], got
+        assert (got["n_jobs"], got["n_requests"]) == (default["n_jobs"], default["n_requests"]), got
+        assert 0.0 <= got["slo_attainment"] <= 1.0 and math.isfinite(got["p99_s"]), got
+        log(f"sched: {name} on the card's curve: SLO attainment {got['slo_attainment']} "
+            f"({got['n_slo_met']} of {got['n_requests']} within {SERVE_SLO} s), p99 "
+            f"{got['p99_s']} s, train interference {got['train_interference']} against "
+            f"{default['slo_attainment']}, {default['p99_s']} s, "
+            f"{default['train_interference']} on the default curve; {card}")
+
+
 def kernels_line(results, path_launches, ops):
     """The ``kernels`` line: one entry per kernel, at its main-path case,
     with its launches summed over the main paths' runs (``path_launches``:
@@ -1910,14 +2025,15 @@ def parse_args(argv):
 
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--only", default="",
-                    help="comma list of rmsnorm, flash, ssd, prefill_profile, parallel: run the "
-                         "device and build phases and these, then stop (to time another tree's "
-                         "kernels beside this one's in one chip call, or phase 11 alone)")
+                    help="comma list of rmsnorm, flash, ssd, prefill_profile, parallel, sched: "
+                         "run the device and build phases and these, then stop (to time another "
+                         "tree's kernels beside this one's in one chip call, or phase 11 or 12 "
+                         "alone)")
     ap.add_argument("--src", type=Path, default=ROOT,
                     help="root of the checkout whose src/repro_torch is run (default: this one)")
     args = ap.parse_args(argv)
     args.only = [p for p in args.only.split(",") if p]
-    unknown = set(args.only) - {"rmsnorm", "flash", "ssd", "prefill_profile", "parallel"}
+    unknown = set(args.only) - {"rmsnorm", "flash", "ssd", "prefill_profile", "parallel", "sched"}
     if unknown:
         ap.error(f"unknown phases {sorted(unknown)}")
     return args
@@ -1975,6 +2091,9 @@ def main(argv=None) -> int:
             profile_prefill(torch, np, cfg, init_params(torch, Model, cfg, dev))
         if "parallel" in args.only:
             parallel_phase(torch, ops, dev)
+        if "sched" in args.only:
+            cfg = get_config("deepseek-7b")
+            sched_phase(card, {cfg.name: calibrate_phase(cfg, init_params(torch, Model, cfg, dev), card)})
         log(f"only {args.only} from {args.src}: done in {time.perf_counter() - t_start:.1f} s")
         return 0
 
@@ -1995,7 +2114,7 @@ def main(argv=None) -> int:
 
     # 6. where a decode step's time goes, and the calibrated curve
     profile_decode(torch, cfg, params)
-    calibrate_phase(cfg, params, card)
+    curves = {cfg.name: calibrate_phase(cfg, params, card)}
     del params
     torch.cuda.empty_cache()
 
@@ -2019,7 +2138,8 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
 
     # 8. serve qwen3-moe-30b-a3b at full width (main path 5), and its checks
-    path_launches["qwen3-moe-30b-a3b"] = moe_phase(torch, np, ops, dev, card)
+    path_launches["qwen3-moe-30b-a3b"], curves["qwen3-moe-30b-a3b"] = moe_phase(
+        torch, np, ops, dev, card)
     torch.cuda.empty_cache()
 
     # 9. training (main paths 3 and 4), and its checks
@@ -2044,6 +2164,9 @@ def main(argv=None) -> int:
 
     # 11. the parallel and launch layer: the dry run, and its cells on the card
     path_launches.update(parallel_phase(torch, ops, dev))
+
+    # 12. the scheduler on the default curve, then on the curves of phases 6 and 8
+    sched_phase(card, curves)
 
     line = kernels_line(results, path_launches, ops)
     log(f"total: {time.perf_counter() - t_start:.1f} s")

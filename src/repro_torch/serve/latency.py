@@ -8,8 +8,10 @@ measures that curve from a live port :class:`~repro_torch.serve.engine.ServeEngi
 ``BatchLatencyModel`` is the port's own copy of the JAX package's class
 (``repro/serve/latency.py``), field for field.
 
+``DEFAULT_SERVE_MODEL`` is the JAX package's committed curve, copied so
+that the scheduler core's ``RequestStream`` defaults match the reference;
 ``H100_SERVE_MODEL`` is the curve ``chip_smoke.py``'s calibrate phase
-measured on the card (see the constant's comment for provenance).
+measured on the card (see each constant's comment for provenance).
 """
 from __future__ import annotations
 
@@ -134,6 +136,17 @@ def calibrate(
         per_req=max(float(per_req), 1e-9),
         tokens_per_request=tokens_per_request,
     )
+
+
+# The JAX package's committed curve (repro/serve/latency.py), copied value
+# for value: `calibrate(ServeEngine(reduced_config("deepseek-7b"), params,
+# max_len=64))` of the JAX engine on the CPU, reduced config, measured
+# base=4.21e-4, per_req=4.43e-5.  It is no number of the card: it is the
+# scheduler's default (RequestStream.svc_base / svc_per_req), kept so that
+# the port's scheduler gives the reference's schedules and digests.
+DEFAULT_SERVE_MODEL = BatchLatencyModel(
+    base=4.2e-4, per_req=4.4e-5, tokens_per_request=32
+)
 
 
 # Measured by chip_smoke.py's calibrate phase: `calibrate(ServeEngine(

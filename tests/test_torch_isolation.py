@@ -34,7 +34,7 @@ def test_port_modules_load_no_jax_and_no_repro():
     )
     assert out.returncode == 0, out.stderr
     first, names = out.stdout.splitlines()[:2]
-    assert int(first.split()[0]) >= 42  # every module of the slices so far was imported
+    assert int(first.split()[0]) >= 60  # every module of the slices so far was imported
     assert {  # the training slice, the MoE slice, then the remaining families' configs
         "repro_torch.tree", "repro_torch.train.optimizer", "repro_torch.train.train_step",
         "repro_torch.train.data", "repro_torch.train.fault_tolerance",
@@ -47,7 +47,34 @@ def test_port_modules_load_no_jax_and_no_repro():
         "repro_torch.parallel.opt_flags", "repro_torch.parallel.sharding",  # the parallel
         "repro_torch.launch.mesh", "repro_torch.launch.analysis",  # and launch layer
         "repro_torch.launch.cost", "repro_torch.launch.dryrun", "repro_torch.dtensor_util",
+        *(f"repro_torch.core{m}" for m in ("", *(f".{n}" for n in CORE_MODULES))),  # the scheduler
     } <= set(names.split())
+
+
+# the scheduler core, copied from the JAX package's repro/core
+CORE_MODULES = ("job", "graph", "timing", "profiles", "scenario", "quantile", "cluster",
+                "heavy_edge", "srpt", "simulator", "migration", "predictor", "prediction_loop",
+                "asrpt", "baselines", "trace")
+
+
+@pytest.mark.parametrize("path", sorted(
+    str(p.relative_to(ROOT)) for p in (ROOT / "src" / "repro_torch" / "core").glob("*.py")
+))
+def test_the_scheduler_core_imports_the_standard_library_and_numpy(path):
+    """The scheduler core is numpy on the host: it imports no torch (so no
+    ``torch.cuda``), no JAX and nothing of ``repro``; its one import that
+    leaves the package is ``scenario.py``'s ``..serve.latency``."""
+    tree = ast.parse((ROOT / path).read_text())
+    roots, outside = set(), set()
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            roots |= {a.name.split(".")[0] for a in node.names}
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            roots.add(node.module.split(".")[0])
+        elif isinstance(node, ast.ImportFrom) and node.level > 1:
+            outside.add("." * node.level + (node.module or ""))
+    assert roots <= set(sys.stdlib_module_names) | {"numpy"}, roots
+    assert outside == ({"..serve.latency"} if path.endswith("scenario.py") else set()), outside
 
 
 def _imported_roots(path: Path) -> set:
