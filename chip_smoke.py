@@ -81,29 +81,40 @@ Phases (any failure exits non-zero):
                 on the card against the CPU (the same routing), then
                 ServeEngine, its tokens against the CPU engine's.
  11. parallel — the dry run (repro_torch.launch.dryrun) of one shape per
-                arch on a fake 16x16 mesh (256 ranks), a line per cell:
-                fits_h100, the per-device peak, FLOPs, collective bytes, the
+                arch, and of the two MoE prefills, on a fake 16x16 mesh (256
+                ranks), a line per cell: fits_h100 (which every cell must),
+                the per-device peak, FLOPs, collective bytes, the
                 bottleneck.  Then, on a one-rank NCCL group and a (1, 1) cuda
                 mesh, with params, state, cache and batch as DTensors placed
-                by the sharding rules, six cells against their dry run on
+                by the sharding rules, seven cells against their dry run on
                 the meta device at the same cut: mamba2-370m and
                 h2o-danube-3-4b at long_500k (one decode step, uncut),
                 deepseek-7b at decode_32k (batch 2), mamba2-370m at train_4k
                 (batch 8: loss, grads, AdamW), deepseek-7b at train_4k
-                (batch 2, 8 layers) and qwen3-moe-30b-a3b at decode_32k
+                (batch 2, 8 layers), qwen3-moe-30b-a3b at decode_32k
                 (batch 2) under moe_a2a, whose logits must equal apply_moe's
-                bit for bit.  In one step of each cell every kernel call
-                is held against its plain version on the same inputs (row
-                error within PLAIN_TOL; a decode cache drawn at random), and
+                bit for bit, and qwen3-moe-30b-a3b at prefill_32k (batch 1:
+                32,768 tokens through the placed MoE dispatch, whose first
+                layer's routing, output and aux must equal apply_moe's on
+                the plain tensors bit for bit).  In one step of each cell
+                every kernel call is held against its plain version on the
+                same inputs (row error within PLAIN_TOL; a decode cache
+                drawn at random; the plain attention in chunks of query
+                rows), and
                 phase 3 holds each kernel at these cells' shapes.  Each
                 holds the state's bytes
                 (requested exactly; allocated within the allocator's
                 rounding), the step's peak (measured / predicted in
                 PEAK_BAND), FLOPs and roofline time against the median of 5
                 steps, and every step's launches by kernel, route, head dim
-                and mask, all through the wrappers' DTensor branch.
+                and mask, all through the wrappers' DTensor branch, and
+                one more step profiled (device time by kernel kind).
  12. sched    — the main path's last link: the port's scheduler core
-                (repro_torch.core, numpy on the host) runs the --serve
+                (repro_torch.core, numpy on the host) runs the CI fleet
+                regime of benchmarks/sched_scale.py (64 perturbed variants
+                of 300 jobs on 16 servers), whose per-variant digests and
+                fleet digest must equal benchmarks/BENCH_fleet_baseline.json's,
+                its wall time logged beside the card; then the --serve
                 regime of benchmarks/sched_scale.py (400 jobs, 16 servers,
                 one diurnal stream of 100 requests/s, SLO 0.2 s) on the
                 default service curve, where both schedule digests must
@@ -1621,13 +1632,15 @@ def hybrid_phase(torch, np, ops):
 
 # The dry run of one shape per arch on the fake 16x16 mesh (all 32 cells
 # take about 160 s of host time: python -m repro_torch.launch.dryrun --all
-# writes them).
+# writes them), and the two MoE prefills, whose dispatch slab is placed
+# over the mesh; every cell must fit one H100.
 DRYRUN_CELLS = (
     ("deepseek-7b", "decode_32k"), ("granite-34b", "decode_32k"),
     ("h2o-danube-3-4b", "long_500k"), ("hubert-xlarge", "prefill_32k"),
     ("jamba-1.5-large-398b", "long_500k"), ("llava-next-mistral-7b", "decode_32k"),
     ("mamba2-370m", "long_500k"), ("moonshot-v1-16b-a3b", "decode_32k"),
     ("qwen3-32b", "prefill_32k"), ("qwen3-moe-30b-a3b", "decode_32k"),
+    ("qwen3-moe-30b-a3b", "prefill_32k"), ("moonshot-v1-16b-a3b", "prefill_32k"),
 )
 # The cells run on the card, on a (1, 1) mesh: (arch, shape, batch cut to
 # (None: not cut), layers cut to (None: not cut), opts, launches a step by
@@ -1647,6 +1660,10 @@ CARD_CELLS = (
     ("qwen3-moe-30b-a3b", "decode_32k", 2, None, ("moe_a2a",),
      {"rmsnorm": 193, "flash/decode K=128 causal": 48},
      "batch 128 -> 2: a full 32,768-slot cache; moe_a2a on a model group of one rank"),
+    ("qwen3-moe-30b-a3b", "prefill_32k", 1, None, (),
+     {"rmsnorm": 193, "flash/mma_prefill K=128 causal": 48},
+     "batch 32 -> 1: 32,768 tokens through the placed MoE dispatch (no moe_a2a), "
+     "its [128, 2560, 2048] slab beside 57 GiB of weights and a 3.2 GB cache"),
 )
 # measured / predicted per-device peak of a step: PERF.md's first
 # prediction set 0.97-1.15; the first runs read 0.9999994-1.00025 in every
@@ -1655,6 +1672,9 @@ PEAK_BAND = (0.999, 1.01)
 # a kernel call's worst row relative L2 against its plain version on the
 # same inputs (the flash cases' bf16 row tolerance)
 PLAIN_TOL = 1e-2
+# the plain flash attention runs over query rows in chunks whose fp32
+# scores take at most this much (a row's output reads its query row alone)
+FLASH_PLAIN_BYTES = 1 << 30
 SEGMENT = 2 << 20  # the caching allocator's large segments are whole 2 MiB
 
 
@@ -1668,7 +1688,7 @@ def dryrun_cells(torch):
     for arch, shape in DRYRUN_CELLS:
         t0 = time.perf_counter()
         r = dryrun.run_cell(arch, shape, False, verbose=False)
-        assert r["ok"] and not dist.is_initialized(), r
+        assert r["ok"] and r["fits_h100"] and not dist.is_initialized(), r
         keys = ("fits_h100", "peak_memory_bytes", "state_bytes", "flops", "bytes",
                 "coll_bytes", "coll_breakdown", "model_flops", "bottleneck", "kernel_calls")
         log("dryrun: " + json.dumps({"cell": f"{arch} x {shape} x 16x16",
@@ -1692,8 +1712,15 @@ class CallsAgainstPlain:
             y, state = ref.ssd_chunked_ref(x, dt, A, Bm, Cm, chunk, init_state)
             return y.to(out_dtype), state
 
+        def flash_plain(q, k, v, q_pos, kv_pos, causal=True, window=None):
+            B, Sq, H, _ = q.shape
+            rows = max(1, FLASH_PLAIN_BYTES // (B * H * k.shape[1] * 4))
+            return torch.cat([ref.flash_attention_ref(q[:, i:i + rows], k, v, q_pos[..., i:i + rows],
+                                                      kv_pos, causal, window)
+                              for i in range(0, Sq, rows)], dim=1)
+
         self.torch, self.ops = torch, ops
-        self.plain = {"rmsnorm": ref.rmsnorm_ref, "flash_attention": ref.flash_attention_ref,
+        self.plain = {"rmsnorm": ref.rmsnorm_ref, "flash_attention": flash_plain,
                       "ssd_scan": ssd_plain}
         self.worst = {name: 0.0 for name in self.plain}
         self.calls = {name: 0 for name in self.plain}
@@ -1736,9 +1763,10 @@ def card_cell(torch, ops, dev, mesh, arch, shape, batch, layers, opts, per_step,
     with the same mesh and cut: the state's bytes (exact), the step's peak
     (in PEAK_BAND), FLOPs and roofline time against the step's median
     device time, and every step's launches by kernel, route and shape, all
-    through the wrappers' DTensor branch; and one step's every kernel call
-    against its plain version on the same inputs.  Returns the launches
-    of the timed steps."""
+    through the wrappers' DTensor branch; one step's every kernel call
+    against its plain version on the same inputs; then one step profiled
+    (device busy share, time by kernel kind).  Returns the launches of
+    the timed steps."""
     import dataclasses
     import gc
 
@@ -1785,6 +1813,8 @@ def card_cell(torch, ops, dev, mesh, arch, shape, batch, layers, opts, per_step,
             log(f"parallel: {arch} moe_a2a decode logits equal apply_moe's bit for bit "
                 f"({tuple(ep.shape)} {ep.dtype})")
             del ep, plain
+        elif cfg.family == "moe":
+            moe_placed_against_plain(torch, cfg, cell, state, mesh, dev)
         before = _launch_counts(ops)
         with CallsAgainstPlain(torch, ops) as check:
             dryrun.run_step(model, cell, state)
@@ -1819,6 +1849,7 @@ def card_cell(torch, ops, dev, mesh, arch, shape, batch, layers, opts, per_step,
                 assert got.get(key, 0) == want, (arch, shape, key, got)
             for name in ops.LAUNCHES:  # every launch came through local_map
                 assert got.get(name, 0) == through[name], (name, got, through)
+        profile_calls(torch, f"parallel {arch} x {shape}", lambda: dryrun.run_step(model, cell, state))
     finally:
         opt_flags.reset()
     step_ms = sorted(ms for ms, _ in records)[len(records) // 2]
@@ -1843,6 +1874,46 @@ def card_cell(torch, ops, dev, mesh, arch, shape, batch, layers, opts, per_step,
     del state
     torch.cuda.empty_cache()
     return {k: sum(got[k] for _, got in records) for k in records[0][1]}
+
+
+def moe_placed_against_plain(torch, cfg, cell, state, mesh, dev):
+    """The first layer's MoE on DTensors (the placed dispatch) against
+    ``apply_moe`` on the same plain tensors, at the cell's width and token
+    count, on a seeded input: routing, output and aux bit for bit, at the
+    config's capacity factor and at half of it, where pairs are dropped
+    (the dispatch's and the combine's dropped-pair branches)."""
+    import dataclasses
+
+    from repro_torch.models import moe as X
+    from repro_torch.parallel import sharding as sh
+
+    B, S = cell.global_batch, cell.seq_len
+    p = sh.gather_fsdp({k: v[0] for k, v in state["params"]["blocks"]["sub0"]["moe"].items()})
+    local = {k: v.to_local() for k, v in p.items()}
+    g = torch.Generator(device=dev).manual_seed(1)
+    x = torch.randn(B, S, cfg.d_model, generator=g, device=dev).to(local["w_up"].dtype)
+    x = sh.distribute(x, sh.to_placements(sh.batch_spec(mesh, x.shape), mesh), mesh)
+    for factor in (cfg.capacity_factor, cfg.capacity_factor / 2):
+        c = dataclasses.replace(cfg, capacity_factor=factor)
+        with torch.no_grad():
+            r, want_r = X.route(p["router"], c, x.reshape(B * S, -1)), \
+                X.route(local["router"], c, x.to_local().reshape(B * S, -1))
+            for field, a in r._asdict().items():
+                b = getattr(want_r, field)
+                same = a == b if field == "capacity" else torch.equal(a.to_local(), b)
+                assert same, (field, a, b)
+            dropped = int((~want_r.keep).sum())
+            del r, want_r
+            y, aux = X.apply_moe(p, c, x)
+            want_y, want_aux = X.apply_moe(local, c, x.to_local())
+            assert torch.equal(y.to_local(), want_y) and torch.equal(aux.to_local(), want_aux), (
+                (y.to_local() - want_y).abs().max(), aux, want_aux)
+        assert dropped > 0 or factor == cfg.capacity_factor, (factor, dropped)
+        log(f"parallel: {cfg.name} placed MoE at {B} x {S} tokens, capacity factor {factor}: "
+            f"routing, output {tuple(want_y.shape)} {want_y.dtype} and aux equal apply_moe's on the "
+            f"plain tensors bit for bit ({dropped} of {B * S * cfg.top_k} pairs dropped at "
+            f"capacity {X.moe_capacity(c, B * S)})")
+        del y, aux, want_y, want_aux
 
 
 def parallel_phase(torch, ops, dev):
@@ -1902,6 +1973,22 @@ SERVE_TRACE = dict(seed=3, single_gpu_frac=0.3, max_gpus_per_job=32, mean_iters=
 # the regime's committed digests (benchmarks/BENCH_serve_baseline.json), read as data
 SERVE_BASELINE = ROOT / "benchmarks" / "BENCH_serve_baseline.json"
 
+# The CI fleet regime of benchmarks/sched_scale.py:609-678
+# (sched_scale_fleet), restated likewise (tests/test_torch_fleet.py holds
+# the two equal): 64 variants, seed 0, of 300 jobs on the 16-server mixed
+# cluster at 3 x 12 s of horizon a job, each variant perturbed by 3
+# stragglers, 2 elastic servers and arrival jitter of sigma 60 s, under
+# migrating A-SRPT without refine_mapping (matmul-free: its digests hold
+# on any machine).
+FLEET_VARIANTS = 64
+FLEET_SEED = 0
+FLEET_JOBS = 300
+FLEET_NUM_SERVERS = 16
+FLEET_SECONDS_PER_JOB = 3 * 12.0
+FLEET_TRACE = dict(seed=1, single_gpu_frac=0.2, max_gpus_per_job=64, mean_iters=400,
+                   sigma_iters=1.6, session_spread=120.0)
+FLEET_BASELINE = ROOT / "benchmarks" / "BENCH_fleet_baseline.json"
+
 
 def serve_regime(core, n_jobs=SERVE_JOBS, curve=None):
     """The --serve regime through the scheduler package ``core``: the
@@ -1926,6 +2013,29 @@ def serve_regime(core, n_jobs=SERVE_JOBS, curve=None):
     return base, mixed
 
 
+def fleet_inputs(core):
+    """(base scenario, perturbations, policy factory) of the fleet regime
+    through the scheduler package ``core``."""
+    cluster = core.mixed_cluster_spec(num_servers=FLEET_NUM_SERVERS, seed=0)
+    jobs = core.generate_trace(core.TraceConfig(
+        n_jobs=FLEET_JOBS, horizon=FLEET_JOBS * FLEET_SECONDS_PER_JOB, **FLEET_TRACE))
+    base = core.Scenario(jobs=tuple(jobs), cluster=cluster, name=f"fleet-base-{FLEET_JOBS}")
+    perts = (core.StragglerPerturbation(n_stragglers=3), core.ElasticPerturbation(n_servers=2),
+             core.ArrivalJitterPerturbation(sigma=60.0))
+
+    def policy():
+        return core.ASRPTPolicy(core.make_predictor("mean"), tau=2.0, refine_mapping=False,
+                                migrate=True)
+
+    return base, perts, policy
+
+
+def fleet_regime(core):
+    """The fleet regime's ``FleetResult`` through ``core``."""
+    base, perts, policy = fleet_inputs(core)
+    return core.run_fleet(base, policy, perts, FLEET_VARIANTS, seed=FLEET_SEED)
+
+
 def serve_summary(base, mixed) -> dict:
     """What the --serve regime reports of a train-only and a mixed run."""
     return {
@@ -1940,15 +2050,27 @@ def serve_summary(base, mixed) -> dict:
 
 
 def sched_phase(card, curves):
-    """The main path's last link: the port's scheduler core runs the
-    --serve regime on ``RequestStream``'s default curve, where its digests
-    must be the committed ones, then on each curve calibrated on the card
-    in this run (``curves``: config name -> ``BatchLatencyModel``).  Host
-    work only: it launches no kernel.  An SLO that a card curve misses is
+    """The main path's last link: the port's scheduler core runs the CI
+    fleet regime, whose 64 variant digests and fleet digest must be the
+    committed ones, then the --serve regime on ``RequestStream``'s default
+    curve, where its digests must be the committed ones, then on each
+    curve calibrated on the card in this run (``curves``: config name ->
+    ``BatchLatencyModel``).  Host work only: it launches no kernel.  An SLO that a card curve misses is
     logged, not failed: the regime is not retuned to pass."""
     import math
 
     from repro_torch import core
+
+    t0 = time.perf_counter()
+    fleet = fleet_regime(core)
+    wall = time.perf_counter() - t0
+    want = json.loads(FLEET_BASELINE.read_text())
+    log("sched: " + json.dumps({"regime": "fleet", "n_variants": FLEET_VARIANTS,
+                                "fleet_digest": fleet.digest(), "stats": fleet.stats,
+                                "wall_s": wall, "baseline_wall_s": want["wall_s"], "card": card}))
+    assert [v.digest for v in fleet.variants] == want["digests"], \
+        f"the port's fleet drifted from {FLEET_BASELINE.name}"
+    assert fleet.digest() == want["fleet_digest"], fleet.digest()
 
     want = json.loads(SERVE_BASELINE.read_text())
     want_train = next(r["train_sha256"] for r in want["rows"] if "train_sha256" in r)

@@ -7,5 +7,6 @@ on the GPU unless the caller passes ``device="cpu"``; the kernels under
 use by ``kernels/_build.py``.  ``core/`` is the scheduler (A-SRPT and its
 simulator), the JAX package's numpy code copied so that its schedules are
 the reference's bit for bit; the card reaches it through the serving
-latency curve that ``serve.latency.calibrate`` measures.
+latency curve that ``serve.latency.calibrate`` measures.  ``analysis/`` is
+the reference's determinism linter, copied likewise, which lints ``core/``.
 """

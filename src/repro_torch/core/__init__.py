@@ -6,15 +6,13 @@ schedules bit for bit (the golden sha256s, the ``--serve`` regime's
 digests).  The one import that leaves the package, ``scenario.py``'s
 ``..serve.latency``, resolves to the port's ``serve/latency.py``, which
 holds its own copy of ``DEFAULT_SERVE_MODEL``.  The code is the
-reference's but for the program name of ``scenario.py``'s command line;
+reference's but for the program names of ``scenario.py``'s and
+``trace_ingest.py``'s command lines;
 comments and docstrings leave out the reference's development history,
 and their ``repro.core`` names are the reference's modules, which these
-copy.  The device enters through the serving replicas' latency curve (``RequestStream.svc_base`` and
-``svc_per_req``), which ``repro_torch.serve.latency.calibrate`` measures.
-
-Not copied yet: ``fleet.py`` (batched Monte-Carlo variants),
-``trace_ingest.py`` (public trace CSVs) and ``ilp.py`` (the exact
-min-cut check).
+copy.  The device enters through the serving replicas' latency curve
+(``RequestStream.svc_base`` and ``svc_per_req``), which
+``repro_torch.serve.latency.calibrate`` measures.
 """
 from .job import (  # noqa: F401
     ClusterSpec,
@@ -70,6 +68,13 @@ from .simulator import (  # noqa: F401
     simulate,
 )
 from .quantile import StreamingQuantile  # noqa: F401
+from .fleet import (  # noqa: F401
+    FleetResult,
+    FleetShared,
+    VariantResult,
+    fleet_variants,
+    run_fleet,
+)
 from .migration import MIGRATION_PENALTY_DEFAULT, MigrationMixin  # noqa: F401
 from .asrpt import ASRPTPolicy  # noqa: F401
 from .baselines import BASELINES  # noqa: F401
@@ -102,4 +107,13 @@ from .trace import (  # noqa: F401
     stream_trace_source,
     trace_stats,
 )
+from .trace_ingest import (  # noqa: F401
+    IngestStats,
+    TraceSchemaError,
+    ingest_scenario,
+    iter_trace_csv,
+    load_trace_csv,
+    trace_jobs_source,
+)
 from .profiles import PAPER_MODELS, make_job, job_from_model_shape  # noqa: F401
+from .ilp import exact_min_cut  # noqa: F401

@@ -26,11 +26,18 @@ runs for them, and counts per device:
   (``track``); the peak is the largest sum, the remat recompute and the
   backward included, and the scratch an op's CUDA kernel holds beside
   its outputs while it runs (``SCRATCH``), which no meta op allocates.
+
+With ``by_op``, the mode also keeps where these come from
+(``by_op_report``): the FLOPs of each op (its name, the source line of
+the port's model code that ran it, its output's shape) and, at the peak,
+the live storages grouped by the op and line that made each.
 """
 from __future__ import annotations
 
+import traceback
 import weakref
-from typing import Any, Dict, Tuple
+from collections import defaultdict
+from typing import Any, Dict, List, Tuple
 
 import torch
 from torch.distributed.tensor import DTensor
@@ -91,6 +98,16 @@ def kernel_flops(name: str, inputs: Dict[str, torch.Tensor]) -> int:
     raise KeyError(name)
 
 
+def _origin() -> str:
+    """The innermost frame of the port's model code on the stack (for a
+    kernel, the line that called its wrapper)."""
+    for fr in reversed(traceback.extract_stack()):
+        if "repro_torch" in fr.filename and not any(
+                d in fr.filename for d in ("/launch/", "/kernels/")):
+            return f"{fr.filename.split('repro_torch/')[-1]}:{fr.lineno}"
+    return "?"
+
+
 def _storage_key(t: torch.Tensor) -> Tuple[int, int]:
     st = t.untyped_storage()
     return st._cdata, st.nbytes()
@@ -98,11 +115,17 @@ def _storage_key(t: torch.Tensor) -> Tuple[int, int]:
 
 class CostMode(TorchDispatchMode):
     """Counts one step's per-device cost; see the module docstring.
-    ``chunk`` is the SSD scan's chunk (the config's ``ssm_chunk``)."""
+    ``chunk`` is the SSD scan's chunk (the config's ``ssm_chunk``);
+    ``by_op`` keeps the cost by op (``by_op_report``)."""
 
-    def __init__(self, chunk: int = 0):
+    def __init__(self, chunk: int = 0, by_op: bool = False):
         super().__init__()
         self.chunk = chunk
+        self.by_op = by_op
+        self._flops_by_op: Dict[str, float] = defaultdict(float)
+        self._made: Dict[int, str] = {}  # storage -> "op @ line shape dtype"
+        self._at_peak: List[Tuple[str, int]] = []
+        self._current = "state"
         self.flops = 0.0
         self.bytes = 0.0
         self.coll: Dict[str, float] = {k: 0.0 for k in COLLECTIVE_OPS}
@@ -129,8 +152,18 @@ class CostMode(TorchDispatchMode):
         size = allocated_bytes(nbytes)
         self._live[key] = size
         self.live_bytes += size
-        self.peak_bytes = max(self.peak_bytes, self.live_bytes)
+        if self.by_op:
+            self._made[key] = f"{self._current} {tuple(t.shape)} {t.dtype}"
+        self._reach(self.live_bytes)
         weakref.finalize(t.untyped_storage(), self._free, key)
+
+    def _reach(self, nbytes: int, scratch: int = 0) -> None:
+        if nbytes > self.peak_bytes:
+            self.peak_bytes = nbytes
+            if self.by_op:  # labels now: a freed storage's key is reused
+                self._at_peak = [(self._made.get(k, "state"), n) for k, n in self._live.items()]
+                if scratch:
+                    self._at_peak.append((f"scratch of {self._current}", scratch))
 
     def _free(self, key: int) -> None:
         self.live_bytes -= self._live.pop(key, 0)
@@ -157,12 +190,15 @@ class CostMode(TorchDispatchMode):
         return super().__exit__(*exc)
 
     def _kernel(self, name: str, inputs: Dict[str, torch.Tensor], outs) -> None:
+        before = self.flops
         if name == "ssd_scan":
             x, Bm = inputs["x"], inputs["B"]
             B, S, H, P = x.shape
             self.flops += ssd_flops(B, S, H, P, Bm.shape[-1], self.chunk)
         else:
             self.flops += kernel_flops(name, inputs)
+        if self.by_op:
+            self._flops_by_op[f"kernel {name} @ {_origin()}"] += self.flops - before
         self.bytes += sum(t.nbytes for t in (*inputs.values(), *outs))
         self.kernel_calls[name] = self.kernel_calls.get(name, 0) + 1
 
@@ -170,12 +206,17 @@ class CostMode(TorchDispatchMode):
         if any(issubclass(t, DTensor) for t in types):
             return NotImplemented  # let DTensor run, then see its local ops
         kwargs = kwargs or {}
-        out = func(*args, **kwargs)
         packet = func._overloadpacket
-        if packet in flop_registry:
-            self.flops += flop_registry[packet](*args, **kwargs, out_val=out)
-        outs = [t for t in tree_flatten(out)[0] if torch.is_tensor(t)]
         name = packet.__name__
+        if self.by_op:
+            self._current = f"{name} @ {_origin()}"
+        out = func(*args, **kwargs)
+        outs = [t for t in tree_flatten(out)[0] if torch.is_tensor(t)]
+        if packet in flop_registry:
+            n = flop_registry[packet](*args, **kwargs, out_val=out)
+            self.flops += n
+            if self.by_op:
+                self._flops_by_op[f"{self._current} -> {tuple(outs[0].shape) if outs else ()}"] += n
         if func.namespace == "_c10d_functional" and name in _COLLECTIVES:
             self.coll[_COLLECTIVES[name]] += sum(t.nbytes for t in outs)
         ins = [t for t in tree_flatten((args, kwargs))[0] if torch.is_tensor(t)]
@@ -186,8 +227,28 @@ class CostMode(TorchDispatchMode):
         for t in outs:
             self._add(t)
         if name in SCRATCH:
-            self.peak_bytes = max(self.peak_bytes, self.live_bytes + SCRATCH[name](outs))
+            scratch = SCRATCH[name](outs)
+            self._reach(self.live_bytes + scratch, scratch)
         return out
+
+    def by_op_report(self, top: int = 12) -> Dict[str, List[Dict[str, Any]]]:
+        """The ``top`` ops by FLOPs (each with its share of the total) and,
+        at the peak, the ``top`` groups of live storages by the op, line,
+        shape and dtype that made them (``"state"``: tracked before the
+        step).  Needs ``by_op``."""
+        if not self.by_op:
+            raise ValueError("CostMode(by_op=True) keeps the cost by op")
+        ops_ = sorted(self._flops_by_op.items(), key=lambda kv: -kv[1])[:top]
+        live: Dict[str, List[int]] = defaultdict(lambda: [0, 0])
+        for made_by, n in self._at_peak:
+            group = live[made_by]
+            group[0] += n
+            group[1] += 1
+        biggest = sorted(live.items(), key=lambda kv: -kv[1][0])[:top]
+        return {
+            "flops_by_op": [{"op": k, "flops": v, "share": v / self.flops} for k, v in ops_],
+            "live_at_peak": [{"made_by": k, "bytes": v[0], "count": v[1]} for k, v in biggest],
+        }
 
     @property
     def coll_bytes(self) -> float:

@@ -20,6 +20,8 @@ Usage:
   python -m repro_torch.launch.dryrun --arch deepseek-7b --shape train_4k \\
       [--multi-pod] [--out results/dryrun_torch/cell.json]
   python -m repro_torch.launch.dryrun --all [--multi-pod]
+  python -m repro_torch.launch.dryrun --arch jamba-1.5-large-398b \\
+      --shape train_4k --by-op 12   # where its FLOPs and its peak come from
 """
 from __future__ import annotations
 
@@ -155,12 +157,13 @@ def run_step(model: Model, cell: ShapeCell, state: Dict[str, Any]):
     return model.decode_step(state["params"], state["cache"], state["tokens"], state["pos"])
 
 
-def measure(model: Model, cell: ShapeCell, mesh) -> Dict[str, Any]:
+def measure(model: Model, cell: ShapeCell, mesh, by_op: bool = False) -> Dict[str, Any]:
     """The per-device cost of one step of ``cell`` on ``mesh``, counted
-    with ``model`` on the meta device: ``CostMode`` after the step, the
-    state's bytes, and the state's bytes as the allocator rounds them."""
+    with ``model`` on the meta device: ``CostMode`` (``by_op``: its cost
+    by op kept) after the step, the state's bytes, and the state's bytes
+    as the allocator rounds them."""
     state = build_state(model, cell, mesh)
-    mode = cost.CostMode(chunk=model.cfg.ssm_chunk)
+    mode = cost.CostMode(chunk=model.cfg.ssm_chunk, by_op=by_op)
     allocated = mode.track(state)
     with mode:
         run_step(model, cell, state)
@@ -181,17 +184,20 @@ def run_cell(
     mesh=None,
     cfg: Optional[ArchConfig] = None,
     opts: tuple = (),
+    by_op: int = 0,
 ) -> dict:
     """One cell on ``mesh`` (a DeviceMesh on the caller's process group),
     or, by default, on the production mesh of a fake process group that
-    is made here and destroyed before returning."""
+    is made here and destroyed before returning.  ``by_op`` > 0 adds the
+    ``by_op`` ops with the most FLOPs and the largest groups of storages
+    live at the peak (``CostMode.by_op_report``)."""
     if mesh is None:
         dist.init_process_group("fake", store=FakeStore(), rank=0,
                                 world_size=512 if multi_pod else 256)
         try:
             return run_cell(arch, shape, multi_pod, verbose,
                             make_production_mesh(multi_pod=multi_pod),
-                            cfg, opts)
+                            cfg, opts, by_op)
         finally:
             dist.destroy_process_group()
     cfg = cfg or get_config(arch)
@@ -200,7 +206,7 @@ def run_cell(
     set_opts(model, cell, mesh, opts)
     t0 = time.time()
     try:
-        got = measure(model, cell, mesh)
+        got = measure(model, cell, mesh, by_op=by_op > 0)
     finally:
         opt_flags.reset()
     mode = got["mode"]
@@ -225,6 +231,8 @@ def run_cell(
         "kernel_calls": mode.kernel_calls,
         **terms.to_dict(),
     }
+    if by_op:
+        result.update(mode.by_op_report(by_op))
     if verbose:
         print(json.dumps(result, indent=2, default=str))
     return result
@@ -239,6 +247,9 @@ def main() -> None:
     ap.add_argument("--out", default=None)
     ap.add_argument("--skip-existing", action="store_true")
     ap.add_argument("--opt", default="", help="comma-separated optimizations (e.g. sp)")
+    ap.add_argument("--by-op", type=int, default=0, metavar="N",
+                    help="one cell: add its N ops with the most FLOPs and the N largest "
+                         "groups of storages live at its peak, each with the op and line that made it")
     args = ap.parse_args()
     opts = tuple(o for o in args.opt.split(",") if o)
 
@@ -270,7 +281,7 @@ def main() -> None:
                 )
         return
 
-    res = run_cell(args.arch, args.shape, args.multi_pod, opts=opts)
+    res = run_cell(args.arch, args.shape, args.multi_pod, opts=opts, by_op=args.by_op)
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
         Path(args.out).write_text(json.dumps(res, indent=2, default=str))

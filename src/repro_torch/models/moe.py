@@ -12,9 +12,9 @@ kernel.
 
 Layouts: router ``[D, E]`` fp32 whatever ``cfg.dtype`` is; ``w_up``,
 ``w_gate`` ``[E, D, F]`` and ``w_down`` ``[E, F, D]`` in ``cfg.dtype``.
-On DTensors the same code runs op by op (``moe_ep`` pins the slabs to
-`model`), or, under ``moe_a2a``, the expert-parallel
-``apply_moe_shard_map``.
+On DTensors the slab is placed over the mesh (``_placed_route``,
+``_placed_experts``: the same slots and outputs), or, under ``moe_a2a``,
+the expert-parallel ``apply_moe_shard_map`` runs.
 """
 from __future__ import annotations
 
@@ -22,12 +22,14 @@ from typing import Any, Dict, NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
-from torch.distributed.tensor import DTensor, Partial
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 from torch.distributed.tensor.experimental import local_map
 
 from ..configs.base import ArchConfig
 from ..parallel import opt_flags
-from ..parallel.sharding import constrain, replicate_like, replicated, to_placements
+from ..parallel.sharding import (
+    axis_size, batch_axes, constrain, maybe, replicated, to_placements,
+)
 from . import layers as L
 
 Params = Dict[str, Any]
@@ -70,6 +72,13 @@ class Routing(NamedTuple):
     expert: torch.Tensor  # [T*K] the pair's slab: its expert, less the first routed one
 
 
+def _scores(router: torch.Tensor, cfg: ArchConfig, xt: torch.Tensor):
+    """(probs [T, E], top_p [T, K] renormalised, top_i [T, K])."""
+    probs = torch.softmax(xt.float() @ router, dim=-1)
+    top_p, top_i = torch.topk(probs, cfg.top_k, dim=-1, sorted=True)
+    return probs, top_p / top_p.sum(-1, keepdim=True).clamp(min=1e-9), top_i
+
+
 def route(
     router: torch.Tensor, cfg: ArchConfig, xt: torch.Tensor,
     experts: Optional[Tuple[int, int]] = None,
@@ -79,24 +88,33 @@ def route(
     the same expert; pairs with slot >= C are dropped.  ``experts`` =
     (first, count) routes to those experts alone (a rank's own under
     expert parallelism): a pair to any other is dropped, and slabs are
-    numbered from ``first``."""
+    numbered from ``first``.  On DTensors, ``_placed_route``."""
+    if isinstance(xt, DTensor):
+        return _placed_route(router, cfg, xt)
     T = xt.shape[0]
     E, K = cfg.n_experts, cfg.top_k
     C = moe_capacity(cfg, T)
-    probs = torch.softmax(xt.float() @ router, dim=-1)
-    top_p, top_i = torch.topk(probs, K, dim=-1, sorted=True)
-    top_p = top_p / top_p.sum(-1, keepdim=True).clamp(min=1e-9)
+    probs, top_p, top_i = _scores(router, cfg, xt)
     flat_e = top_i.reshape(T * K)
-    onehot = F.one_hot(flat_e, E)  # [T*K, E]
-    expert, mine, slab_hot = flat_e, None, onehot
+    pos, load = _positions(flat_e, E)
+    expert, keep = flat_e, pos < C
     if experts is not None:
         first, count = experts
         mine = (flat_e >= first) & (flat_e < first + count)
-        expert = torch.where(mine, flat_e - first, 0)
-        slab_hot = F.one_hot(expert, count) * mine[:, None]
-    pos = ((slab_hot.cumsum(0) - 1) * slab_hot).sum(-1)
-    keep = pos < C if mine is None else mine & (pos < C)
-    return Routing(probs, top_p, top_i, onehot.sum(0), torch.where(keep, pos, C), keep, C, expert)
+        expert, keep = torch.where(mine, flat_e - first, 0), mine & keep
+    return Routing(probs, top_p, top_i, load, torch.where(keep, pos, C), keep, C, expert)
+
+
+def _positions(e: torch.Tensor, E: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(each pair's rank among the earlier pairs that chose its expert,
+    each expert's pair count), for pairs ``e [n]`` in row-major (token, k)
+    order: a stable sort by expert, where a ``[n, E]`` one-hot's cumsum
+    over its n rows is a slow outer-dim scan on the card."""
+    order = torch.sort(e, stable=True).indices
+    count = torch.zeros(E, dtype=torch.int64, device=e.device).index_add_(0, e, torch.ones_like(e))
+    pos = torch.empty_like(e)
+    pos[order] = torch.arange(e.numel(), device=e.device) - (count.cumsum(0) - count)[e[order]]
+    return pos, count
 
 
 def _aux(r: Routing, cfg: ArchConfig) -> torch.Tensor:
@@ -105,37 +123,155 @@ def _aux(r: Routing, cfg: ArchConfig) -> torch.Tensor:
     return cfg.n_experts * torch.sum(r.load.float() / (T * K) * r.probs.mean(0))
 
 
+def _dispatch(x: torch.Tensor, expert, slot, keep, first: int, n_loc: int, C: int) -> torch.Tensor:
+    """The ``[n_loc, C, D]`` slabs ``first ..`` of pairs ``(expert, slot,
+    keep) [T*K]`` of tokens ``x [T, D]``: each slot holds the token of the
+    kept pair that fills it, or zeros.  Kept (slab, slot) pairs are unique,
+    so a gather by the pair that fills each slot is the reference's
+    scatter-add."""
+    n_pairs, D = expert.shape[0], x.shape[1]
+    ok = keep & (expert >= first) & (expert < first + n_loc)
+    fill = torch.full((n_loc * C + 1,), n_pairs, dtype=torch.int64, device=x.device)
+    fill[torch.where(ok, (expert - first) * C + slot, n_loc * C)] = torch.arange(
+        n_pairs, device=x.device)  # scratch entry n_loc * C takes the others
+    fill = fill[:-1]
+    part = x[torch.div(fill, n_pairs // x.shape[0], rounding_mode="floor").clamp(max=x.shape[0] - 1)]
+    return part.masked_fill_((fill == n_pairs)[:, None], 0).view(n_loc, C, D)
+
+
+def _combine(out: torch.Tensor, expert, slot, keep, top_p, first: int) -> torch.Tensor:
+    """``[T, D]``: each token's pairs kept in slabs ``out [n_loc, C, D]``
+    (slabs ``first ..``), weighted by ``top_p [T, K]`` and summed over its
+    K pairs; a pair in no slab of ``out`` adds zeros.  A sum over a ``[T,
+    K, D]`` view, not index_add_, whose CUDA adds come in no fixed order."""
+    n_loc, C, D = out.shape
+    ok = keep & (expert >= first) & (expert < first + n_loc)
+    gathered = out.view(n_loc * C, D)[torch.where(ok, (expert - first) * C + slot, 0)]
+    gathered.masked_fill_(~ok[:, None], 0)
+    weights = (top_p.reshape(-1) * keep).to(gathered.dtype)
+    return (gathered * weights[:, None]).view(-1, top_p.shape[1], D).sum(1)
+
+
+def _swiglu(buf: torch.Tensor, w_up, w_gate, w_down) -> torch.Tensor:
+    """The grouped SwiGLU over every slab of ``buf [n, C, D]``."""
+    up = torch.bmm(buf, w_up)
+    gate = torch.bmm(buf, w_gate)
+    return torch.bmm(F.silu(gate) * up, w_down)
+
+
 def _experts(p: Params, xt: torch.Tensor, r: Routing, n_slabs: int) -> torch.Tensor:
     """Dispatch, grouped SwiGLU and combine: ``[T, D]``, each token's kept
-    pairs' expert outputs weighted and summed."""
-    T, D = xt.shape
-    K = r.top_i.shape[1]
-    # Dispatch into [n, C+1, D]: kept (slab, slot) pairs are unique, so
-    # assignment is the reference's scatter-add; dropped pairs land in
-    # scratch row C, sliced off.
-    token_idx = replicate_like(torch.arange(T, device=xt.device).repeat_interleave(K), xt)
-    buf = xt.new_zeros((n_slabs, r.capacity + 1, D))
-    buf = buf.index_put((r.expert, r.slot), xt[token_idx])[:, : r.capacity]
-    if opt_flags.get("moe_ep"):
-        # pin the dispatch slabs to expert parallelism (a no-op on a
-        # plain tensor, as inside the expert-parallel path)
-        buf = constrain(buf, ("model", None, None))
+    pairs' expert outputs weighted and summed.  On DTensors,
+    ``_placed_experts``."""
+    if isinstance(xt, DTensor):
+        return _placed_experts(p, xt, r)
+    buf = _dispatch(xt, r.expert, r.slot, r.keep, 0, n_slabs, r.capacity)
+    out = _swiglu(buf, p["w_up"], p["w_gate"], p["w_down"])
+    return _combine(out, r.expert, r.slot, r.keep, r.top_p, 0)
 
-    # Grouped SwiGLU over every slab
-    up = torch.bmm(buf, p["w_up"])
-    gate = torch.bmm(buf, p["w_gate"])
-    out = torch.bmm(F.silu(gate) * up, p["w_down"])  # [n, C, D]
-    if opt_flags.get("moe_ep"):
-        out = constrain(out, ("model", None, None))
 
-    # Combine: each pair's expert output (row C = zeros for a dropped
-    # pair), weighted, summed over the token's K pairs.  A sum over a
-    # [T, K, D] view, not index_add_, whose CUDA adds come in no fixed
-    # order.
-    out_pad = torch.cat([out, out.new_zeros((n_slabs, 1, D))], dim=1)
-    gathered = out_pad[r.expert, r.slot]  # [T*K, D]
-    weights = (r.top_p.reshape(T * K) * r.keep).to(gathered.dtype)
-    return (gathered * weights[:, None]).view(T, K, D).sum(1)
+# --------------------------------------------------------------------------
+# on DTensors: the dispatch slab placed, never whole on a device
+# --------------------------------------------------------------------------
+
+
+def _placed_route(router: DTensor, cfg: ArchConfig, xt: DTensor) -> Routing:
+    """``route`` of tokens split over the batch axes (``xt`` Shard(0)
+    there, whole on the other mesh dims; the router whole): each rank
+    routes its own tokens as the plain route does, then adds to each
+    pair's rank among its expert's pairs the pairs of the ranks before it
+    in the batch split (an all-gather of each rank's ``[E]`` counts).  The
+    integers are the plain route's on the whole tensor exactly.  The
+    gradients of xt and the router are each rank's own (placed as xt, and
+    a sum over the batch axes)."""
+    mesh, pl = xt.device_mesh, xt.placements
+    T, E = xt.shape[0], cfg.n_experts
+    C = moe_capacity(cfg, T)
+    rep = replicated(mesh)
+
+    def local(x, w):
+        probs, top_p, top_i = _scores(w, cfg, x)
+        pos, count = _positions(top_i.reshape(-1), E)
+        return probs, top_p, top_i, pos, count[None]
+
+    over_batch = tuple(Partial() if q == Shard(0) else r for q, r in zip(pl, rep))
+    probs, top_p, top_i, pos, counts = local_map(
+        local, out_placements=(pl,) * 5, in_placements=(pl, rep),
+        in_grad_placements=(pl, over_batch), device_mesh=mesh)(xt, router)
+    counts = counts.redistribute(mesh, rep)  # [ranks of the batch split, E]
+    before = (counts.cumsum(0) - counts).redistribute(mesh, pl)  # each rank's own row
+    flat_e = top_i.reshape(-1)
+    pos = local_map(lambda q, e, b: q + b[0][e], out_placements=(pl,),
+                    in_placements=(pl, pl, pl), device_mesh=mesh)(pos, flat_e, before)
+    keep = pos < C
+    return Routing(probs, top_p, top_i, counts.sum(0), torch.where(keep, pos, C), keep, C, flat_e)
+
+
+def _placed_experts(p: Params, xt: DTensor, r: Routing) -> DTensor:
+    """``_experts`` on DTensors, its ``[E, C, D]`` slab never whole on a
+    device: E on `model` (the experts' own split, where XLA's partitioner
+    puts it in the reference's einsums) and C over the batch axes, so
+    that each expert product is a local one.  (XLA keeps C whole and
+    splits each product's contraction over the batch axes instead,
+    reducing ``[E/model, C, .]`` partial sums: the same FLOPs a device,
+    with more memory and more bytes moved.)  Each rank builds, from its
+    own tokens, the part of its experts' slabs that they fill (a gather,
+    zero rows where no pair of its tokens lands), and a reduce-scatter
+    over the batch axes sums the parts into each rank's slots.
+    The combine gathers ``out``'s slots back over the batch axes and each
+    rank weights its own tokens' pairs to its experts; a sum over `model`
+    adds the experts of the other ranks.  C is padded up to a multiple of
+    the batch split with zero rows, which no pair reads.
+
+    Under ``moe_ep`` the slabs are pinned to ``("model", None, None)``,
+    whole over the batch axes, and the products split d_ff over them, as
+    XLA's partitioner runs the reference's einsums there: each rank takes
+    its slice of the weights' d_ff, and the last product's sum over the
+    slices is reduced."""
+    mesh, pairs = xt.device_mesh, xt.placements
+    names = tuple(mesh.mesh_dim_names)
+    n = p["w_up"].shape[0]
+    batch = tuple(i for i, q in enumerate(pairs) if q == Shard(0))
+    split = 1
+    for i in batch:
+        split *= mesh.size(i)
+    C = -(-r.capacity // split) * split
+    m = maybe(mesh, n, "model")
+    n_loc = n // axis_size(mesh, "model") if m else n
+    first = mesh.get_local_rank(names.index("model")) * n_loc if m else 0
+    b = tuple(names[i] for i in batch) or None
+    whole_b = to_placements((m, None, None), mesh)  # whole over the batch axes
+    partial = tuple(Partial() if i in batch else q for i, q in enumerate(whole_b))
+    over_model = tuple(Partial() if names[i] == "model" and m else q for i, q in enumerate(pairs))
+
+    part = local_map(lambda *a: _dispatch(*a, first, n_loc, C), out_placements=(partial,),
+                     in_placements=(pairs,) * 4,
+                     in_grad_placements=(over_model, pairs, pairs, pairs),
+                     device_mesh=mesh)(xt, r.expert, r.slot, r.keep)
+    if opt_flags.get("moe_ep"):
+        buf = part.redistribute(mesh, whole_b)
+        f_split = p["w_up"].shape[2] % split == 0
+        out = _swiglu(buf, *(_split_over(p[k], d, batch, f_split)
+                             for k, d in (("w_up", 2), ("w_gate", 2), ("w_down", 1))))
+    else:
+        buf = part.redistribute(mesh, to_placements((m, b, None), mesh))
+        out = _swiglu(buf, p["w_up"], p["w_gate"], p["w_down"])  # [n, C, D], placed as buf
+    out = out.redistribute(mesh, whole_b)  # each rank's experts, every slot
+
+    y = local_map(lambda *a: _combine(*a, first), out_placements=(over_model,),
+                  in_placements=(whole_b,) + (pairs,) * 4,
+                  in_grad_placements=(partial, pairs, pairs, pairs, over_model),
+                  device_mesh=mesh)(out, r.expert, r.slot, r.keep, r.top_p)
+    return y.redistribute(mesh, pairs)
+
+
+def _split_over(w: DTensor, dim: int, batch: Tuple[int, ...], split: bool) -> DTensor:
+    """An expert weight with ``dim`` split over the mesh dims ``batch``
+    (a local slice where it is whole there), or, unless ``split``, whole
+    over them."""
+    want = tuple((Shard(dim) if split else Replicate()) if i in batch else q
+                 for i, q in enumerate(w.placements))
+    return w.redistribute(w.device_mesh, want)
 
 
 def apply_moe(p: Params, cfg: ArchConfig, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -145,6 +281,8 @@ def apply_moe(p: Params, cfg: ArchConfig, x: torch.Tensor) -> Tuple[torch.Tensor
     if opt_flags.get("moe_a2a") and opt_flags.get("mesh") is not None:
         return apply_moe_shard_map(p, cfg, x, opt_flags.get("mesh"), opt_flags.get("batch_axes"))
     B, S, D = x.shape
+    if isinstance(x, DTensor):  # tokens over the batch axes, whole on `model`
+        x = constrain(x, (batch_axes(x.device_mesh, B), None, None))
     xt = x.reshape(B * S, D)
     r = route(p["router"], cfg, xt)
     return _experts(p, xt, r, cfg.n_experts).view(B, S, D), _aux(r, cfg)

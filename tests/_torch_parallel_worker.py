@@ -192,6 +192,65 @@ def run_ep_vs_jax(rank: int, out: Path) -> None:
         np.savez(out / "port_ep.npz", **{k: v.detach().numpy() for k, v in res.items()})
 
 
+# (arch, mesh (data, model), batch, flags, config overrides): the MoE layer
+# alone on DTensors, its dispatch slab placed (``moe._placed_experts``)
+MOE_PLACED = {
+    "qwen3-moe-30b-a3b/2x2": ("qwen3-moe-30b-a3b", (2, 2), 4, (), {}),
+    "qwen3-moe-30b-a3b/2x2/moe_ep": ("qwen3-moe-30b-a3b", (2, 2), 4, ("moe_ep",), {}),
+    # pairs dropped at every expert's capacity
+    "moonshot-v1-16b-a3b/2x2/drops": ("moonshot-v1-16b-a3b", (2, 2), 4, (), {"capacity_factor": 0.5}),
+    # C = 16 slots over 3 batch ranks: the slab padded to 18
+    "qwen3-moe-30b-a3b/3x2": ("qwen3-moe-30b-a3b", (3, 2), 3, (), {"capacity_factor": 0.5}),
+    "qwen3-moe-30b-a3b/3x2/moe_ep": ("qwen3-moe-30b-a3b", (3, 2), 3, ("moe_ep",), {}),
+}
+
+
+def moe_inputs(arch: str, batch: int, overrides: dict):
+    """(cfg, MoE params, x [batch, S, D], a cotangent for the output),
+    alike on every rank."""
+    cfg = reduced_config(arch, **overrides)
+    p = TX.init_moe(torch.Generator().manual_seed(4), cfg)
+    rng = np.random.default_rng(5)
+    x = torch.from_numpy(rng.standard_normal((batch, S, cfg.d_model)).astype(np.float32))
+    dy = torch.from_numpy(rng.standard_normal((batch, S, cfg.d_model)).astype(np.float32))
+    return cfg, p, x, dy
+
+
+def moe_layer(cfg, p, x, dy):
+    """``apply_moe`` and ``route`` on ``x`` (DTensors or not), the params'
+    FSDP shards gathered as a block gathers them: the output, aux, the
+    routing's fields and the grads of ``(y * dy).sum() + aux`` to x and
+    each param."""
+    live = tree_map(lambda t: t.detach().requires_grad_(), {"x": x, **p})
+    gathered = sh.gather_fsdp({k: v for k, v in live.items() if k != "x"})
+    y, aux = TX.apply_moe(gathered, cfg, live["x"])
+    grads = torch.autograd.grad((y * dy).sum() + aux, list(live.values()))
+    xt = live["x"].detach()
+    r = TX.route(gathered["router"].detach(), cfg, xt.reshape(-1, cfg.d_model))
+    res = {"y": y, "aux": aux, **{f"grad/{k}": g for k, g in zip(live, grads)}}
+    res.update({f"route/{k}": v for k, v in r._asdict().items() if k != "capacity"})
+    return {k: _full(v).detach() for k, v in res.items()}
+
+
+def run_moe_placed(rank: int, out: Path) -> None:
+    world = dist.get_world_size()
+    for name, (arch, (data, model_axis), batch, flags, overrides) in MOE_PLACED.items():
+        if data * model_axis != world:
+            continue
+        mesh = make_debug_mesh(world, model_axis, device_type="cpu")
+        cfg, p, x, dy = moe_inputs(arch, batch, overrides)
+        place = lambda t: sh.to_placements(sh.batch_spec(mesh, t.shape), mesh)  # noqa: E731
+        dp = sh.distribute(p, sh.param_shardings(cfg, p, mesh), mesh)
+        opt_flags.reset()
+        opt_flags.set_flags(batch_axes=sh.batch_axes(mesh, batch), **{f: True for f in flags})
+        try:
+            res = moe_layer(cfg, dp, sh.distribute(x, place(x), mesh), sh.distribute(dy, place(dy), mesh))
+        finally:
+            opt_flags.reset()
+        if rank == 0:
+            np.savez(out / f"moe_{name.replace('/', '__')}.npz", **{k: v.numpy() for k, v in res.items()})
+
+
 def elastic_state(cfg):
     """A seeded train state: params, first moments, step 7."""
     gen = torch.Generator().manual_seed(3)
@@ -312,7 +371,8 @@ def run_wrappers(rank: int, out: Path) -> None:
 
 
 CASES = {"parity": run_parity, "wrappers": run_wrappers, "decode": run_decode, "ep_vs_jax": run_ep_vs_jax,
-         "elastic_save": run_elastic_save, "elastic_restore": run_elastic_restore}
+         "elastic_save": run_elastic_save, "elastic_restore": run_elastic_restore,
+         "moe_placed": run_moe_placed}
 
 
 def _rank(rank: int, case: str, world: int, out: str) -> None:

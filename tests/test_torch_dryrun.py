@@ -20,6 +20,9 @@ against the JAX package's.
 * ``CostMode`` counts the scratch of the CUDA softmax backward
   (``cost.SCRATCH``); a decode cell built with a generator has its cache
   drawn from it.
+* ``run_cell(by_op=N)`` counts what it counts without, and its by-op
+  report adds up: the ops' FLOPs to the cell's, the storages live at the
+  peak (the softmax backward's scratch among them) to its peak.
 
 The reduced configs run at head_dim 64 and in bf16: on the meta device
 the wrappers check what the card's kernels take, and 16 is not a head
@@ -167,3 +170,26 @@ def test_decode_state_draws_its_cache():
         state = dryrun.build_state(Model(cfg, device="cpu"), cell, mesh, torch.Generator().manual_seed(0))
         floats = [t.to_local() for t in leaves(state["cache"]) if t.is_floating_point()]
         assert floats and all(bool((t != 0).all()) for t in floats)
+
+
+@pytest.mark.parametrize("shape", ["prefill_32k", "train_4k"])
+def test_cost_by_op_adds_up(shape):
+    cfg = reduced_config("qwen3-moe-30b-a3b", **KW)
+    with FakeGroup(8):
+        mesh = make_debug_mesh(8, model=2)
+        plain = dryrun.run_cell("qwen3-moe-30b-a3b", shape, False, verbose=False, mesh=mesh, cfg=cfg)
+        got = dryrun.run_cell("qwen3-moe-30b-a3b", shape, False, verbose=False, mesh=mesh, cfg=cfg,
+                              by_op=10**6)
+    for key in ("flops", "bytes", "coll_bytes", "peak_memory_bytes", "state_bytes"):
+        assert got[key] == plain[key], key
+    assert "flops_by_op" not in plain
+    assert sum(o["flops"] for o in got["flops_by_op"]) == pytest.approx(got["flops"], rel=1e-12)
+    assert sum(o["bytes"] for o in got["live_at_peak"]) == got["peak_memory_bytes"]
+    ops = [o["op"] for o in got["flops_by_op"]]
+    assert ops[0].startswith("kernel flash_attention @ models/layers.py:"), ops[:3]
+    assert any(o.startswith("bmm @ models/moe.py:") for o in ops), ops
+    made = [g["made_by"] for g in got["live_at_peak"]]
+    assert any(m.startswith("state (") for m in made) and (
+        any(m.startswith("scratch of _softmax_backward_data") for m in made) == (shape == "train_4k")), made
+    with pytest.raises(ValueError):
+        cost.CostMode().by_op_report()

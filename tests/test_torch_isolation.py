@@ -48,13 +48,16 @@ def test_port_modules_load_no_jax_and_no_repro():
         "repro_torch.launch.mesh", "repro_torch.launch.analysis",  # and launch layer
         "repro_torch.launch.cost", "repro_torch.launch.dryrun", "repro_torch.dtensor_util",
         *(f"repro_torch.core{m}" for m in ("", *(f".{n}" for n in CORE_MODULES))),  # the scheduler
+        *(f"repro_torch.analysis{m}" for m in ("", *(f".{n}" for n in ANALYSIS_MODULES))),
     } <= set(names.split())
 
 
-# the scheduler core, copied from the JAX package's repro/core
+# the scheduler core, copied from the JAX package's repro/core, and its
+# linter, from repro/analysis
 CORE_MODULES = ("job", "graph", "timing", "profiles", "scenario", "quantile", "cluster",
                 "heavy_edge", "srpt", "simulator", "migration", "predictor", "prediction_loop",
-                "asrpt", "baselines", "trace")
+                "asrpt", "baselines", "trace", "ilp", "fleet", "trace_ingest")
+ANALYSIS_MODULES = ("detlint", "policy_rules")
 
 
 @pytest.mark.parametrize("path", sorted(
@@ -75,6 +78,25 @@ def test_the_scheduler_core_imports_the_standard_library_and_numpy(path):
             outside.add("." * node.level + (node.module or ""))
     assert roots <= set(sys.stdlib_module_names) | {"numpy"}, roots
     assert outside == ({"..serve.latency"} if path.endswith("scenario.py") else set()), outside
+
+
+@pytest.mark.parametrize("path", sorted(
+    str(p.relative_to(ROOT)) for p in (ROOT / "src" / "repro_torch" / "analysis").glob("*.py")
+))
+def test_the_linter_imports_the_standard_library_and_numpy(path):
+    """``repro_torch.analysis`` imports only the standard library, numpy
+    and its own modules: nothing of torch, JAX, ``repro`` or the rest of
+    the port."""
+    tree = ast.parse((ROOT / path).read_text())
+    roots = set()
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            roots |= {a.name.split(".")[0] for a in node.names}
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            roots.add(node.module.split(".")[0])
+        elif isinstance(node, ast.ImportFrom):
+            assert node.level == 1, (path, node.module)
+    assert roots <= set(sys.stdlib_module_names) | {"numpy"}, roots
 
 
 def _imported_roots(path: Path) -> set:

@@ -35,8 +35,8 @@ REF_DIR = ROOT / "src" / "repro" / "core"
 PORT_DIR = ROOT / "src" / "repro_torch" / "core"
 COPIED = ("job", "graph", "timing", "profiles", "scenario", "quantile", "cluster", "heavy_edge",
           "srpt", "simulator", "migration", "predictor", "prediction_loop", "asrpt", "baselines",
-          "trace")
-LEFT_OUT = ("fleet", "trace_ingest", "ilp")
+          "trace", "ilp", "fleet", "trace_ingest")
+ANALYSIS = ("__init__", "detlint", "policy_rules")
 
 
 def _load_chip_smoke():
@@ -337,24 +337,50 @@ def _code(source: str) -> str:
     return ast.dump(tree)
 
 
-# the code of the copy is the reference's but for the command line's
-# program name; the import that leaves the package (scenario.py's
+# the code of the copy is the reference's but for the command lines'
+# program names; the import that leaves the package (scenario.py's
 # ``..serve.latency``) is the same text, resolved inside the port
-CHANGED = {"scenario": ('prog="python -m repro.core.scenario"',
-                        'prog="python -m repro_torch.core.scenario"')}
+CHANGED = {
+    "scenario": [('prog="python -m repro.core.scenario"',
+                  'prog="python -m repro_torch.core.scenario"')],
+    "trace_ingest": [('prog="python -m repro.core.trace_ingest"',
+                      'prog="python -m repro_torch.core.trace_ingest"')],
+}
+# detlint's program name, and the name that ``python -m`` aliases to the
+# running module (else policy_rules registers POL001/POL002 into a second
+# copy's registry)
+CHANGED_ANALYSIS = {
+    "detlint": [('prog="python -m repro.analysis.detlint"',
+                 'prog="python -m repro_torch.analysis.detlint"'),
+                ('"repro.analysis.detlint", sys.modules[__name__]',
+                 '"repro_torch.analysis.detlint", sys.modules[__name__]')],
+}
+
+
+def _held_to_reference(ref_file: Path, port_file: Path, changes) -> None:
+    ref, port = ref_file.read_text(), port_file.read_text()
+    for old, new in changes:
+        assert ref.count(old) == 1 and port.count(new) == 1, (old, new)
+        ref = ref.replace(old, new)
+    assert _code(port) == _code(ref)
 
 
 @pytest.mark.parametrize("module", COPIED)
 def test_the_copy_is_the_reference(module):
     """Only comments and docstrings may differ (the copy's drop the
-    reference's development history), and the one named change."""
-    ref = (REF_DIR / f"{module}.py").read_text()
-    port = (PORT_DIR / f"{module}.py").read_text()
-    if module in CHANGED:
-        old, new = CHANGED[module]
-        assert ref.count(old) == 1 and port.count(new) == 1
-        ref = ref.replace(old, new)
-    assert _code(port) == _code(ref)
+    reference's development history), and the named changes."""
+    _held_to_reference(REF_DIR / f"{module}.py", PORT_DIR / f"{module}.py",
+                       CHANGED.get(module, []))
+
+
+@pytest.mark.parametrize("module", ANALYSIS)
+def test_the_analysis_copy_is_the_reference(module):
+    """``repro_torch.analysis`` against ``repro.analysis``, as the core."""
+    _held_to_reference(ROOT / "src" / "repro" / "analysis" / f"{module}.py",
+                       ROOT / "src" / "repro_torch" / "analysis" / f"{module}.py",
+                       CHANGED_ANALYSIS.get(module, []))
+    assert sorted(p.stem for p in (ROOT / "src" / "repro_torch" / "analysis").glob("*.py")) \
+        == sorted(ANALYSIS)
 
 
 def _exports(init: Path) -> dict:
@@ -369,8 +395,7 @@ def _exports(init: Path) -> dict:
 def test_port_exports_the_copied_modules():
     want = _exports(REF_DIR / "__init__.py")
     got = _exports(PORT_DIR / "__init__.py")
-    assert set(want) - set(got) == set(LEFT_OUT)
-    assert got == {m: names for m, names in want.items() if m not in LEFT_OUT}
+    assert got == want
     assert sorted(p.stem for p in PORT_DIR.glob("*.py")) == sorted(("__init__", *COPIED))
 
 
@@ -395,8 +420,7 @@ def _port_config():
 
 def test_detlint_on_the_copy(monkeypatch):
     """Zero unsuppressed findings, and each suppressed one pairs with one
-    of the reference's at the same rule and function (of the reference's,
-    only the left-out modules' have no pair)."""
+    of the reference's at the same rule and function: all nine of them."""
     monkeypatch.chdir(ROOT)
     ref = detlint.lint_paths(["src/repro/core"], config=detlint.load_config(ROOT / "pyproject.toml"))
     cfg = _port_config()
@@ -410,9 +434,6 @@ def test_detlint_on_the_copy(monkeypatch):
     def key(f, prefix):
         return (f.path[len(prefix):], f.rule, f.qualname, f.suppression)
 
-    want = sorted(key(f, "src/repro/core/") for f in ref.findings if f.suppressed
-                  and Path(f.path).stem not in LEFT_OUT)
+    want = sorted(key(f, "src/repro/core/") for f in ref.findings if f.suppressed)
     mine = sorted(key(f, "src/repro_torch/core/") for f in got.findings if f.suppressed)
-    assert mine == want and mine
-    left = [f for f in ref.findings if f.suppressed and Path(f.path).stem in LEFT_OUT]
-    assert len(mine) + len(left) == len([f for f in ref.findings if f.suppressed])
+    assert mine == want and len(mine) == 9
