@@ -17,18 +17,24 @@ Phases (any failure exits non-zero):
                 query row <= 1e-2 in bf16, 1e-4 in fp32), and the new
                 cases show that planted faults (a wrong mask, window or
                 scale, the ring's wrapped slots dropped) break that bound.
+                Flash runs at head_dim 16 too, the reduced configs' width,
+                on every route (decode over 4,096 slots, causal and
+                windowed prefills of 2,048, the reduced model's own calls).
   4. serve    — main path 1: full-width, 30-layer deepseek-7b in bf16 from
                 a seeded generator; ServeEngine(max_len=512, batch_size=4)
                 serves 6 requests of 16 new tokens; every forward pass must
                 launch 61 RMSNorm and 30 attention kernels, a prefill's
                 through the tensor-core route (mma_prefill), a decode
                 step's through the decode route.
-  5. checks   — prefill/decode consistency at full width, and a small model
-                on the card against the same model on the CPU (plain path);
-                in fp32 its prefill takes the FMA route and its decode
-                steps the decode route.
+  5. checks   — prefill/decode consistency at full width, and reduced
+                deepseek-7b (head_dim 16, fp32) on the card against the
+                same model on the CPU (plain path); its prefill takes
+                "fma K=16 causal", its decode steps "decode K=16 causal".
   6. calibrate — a profiled decode step (device busy share, time by kernel)
-                and the decode-step latency curve at batch 1, 8, 32, 128.
+                and the decode-step latency curve at batch 1, 8, 32, 128;
+                then the same recipe on reduced deepseek-7b (fp32, head_dim
+                16), the config the reference's default curve was measured
+                on under CPU JAX: every decode step "decode K=16 causal".
   7. ssm      — main path 2: full-width, 48-layer mamba2-370m in bf16;
                 ServeEngine(max_len=512, batch_size=4) serves 6 requests
                 (prompts of 1 to 300 tokens) of 16 new tokens; every pass
@@ -77,7 +83,7 @@ Phases (any failure exits non-zero):
                 route, head dim and mask (ops.FLASH_SHAPES), and each path
                 is profiled.  The hybrid jamba-1.5-large-398b (398 G
                 parameters, more than one card holds) runs cut to its
-                reduced config at head_dim 64 in fp32: prefill and decode
+                reduced config (head_dim 16) in fp32: prefill and decode
                 on the card against the CPU (the same routing), then
                 ServeEngine, its tokens against the CPU engine's.
  11. parallel — the dry run (repro_torch.launch.dryrun) of one shape per
@@ -119,8 +125,8 @@ Phases (any failure exits non-zero):
                 one diurnal stream of 100 requests/s, SLO 0.2 s) on the
                 default service curve, where both schedule digests must
                 equal benchmarks/BENCH_serve_baseline.json's, then on the
-                curves calibrated in phases 6 (deepseek-7b) and 8
-                (qwen3-moe-30b-a3b): SLO attainment, p50/p99, train
+                curves calibrated in phases 6 (deepseek-7b, full width and
+                reduced) and 8 (qwen3-moe-30b-a3b): SLO attainment, p50/p99, train
                 interference, preemptions, digests and wall time for each,
                 beside the card's name and power limit.
 Then one line {"kernels": [...]} and, last, {"ok": true, "device": {...}}.
@@ -128,9 +134,9 @@ Then one line {"kernels": [...]} and, last, {"ok": true, "device": {...}}.
     python3 chip_smoke.py --only rmsnorm,ssd,prefill_profile --src DIR
 
 runs phases 1-3 for the named kernels (and the profiled prefill, phase 11
-for "parallel", or for "sched" deepseek-7b's calibrated curve and phase 12
-on it) on the port in DIR/src, then stops: two trees' kernels timed in one
-chip call.
+for "parallel", or for "sched" deepseek-7b's calibrated curves, full width
+and reduced, and phase 12 on them) on the port in DIR/src, then stops: two
+trees' kernels timed in one chip call.
 
 Imports nothing of JAX or of the JAX package.
 """
@@ -350,6 +356,24 @@ def flash_cases(torch, ops, ref, timer, dev):
         # deepseek-7b and qwen3-moe-30b-a3b x decode_32k at batch 2 (phase 11)
         ("decode_32k", 2, 1, 32768, 32, 32, 128, "bfloat16", None, last_q, full_kv, True),
         ("decode_32k_moe", 2, 1, 32768, 32, 4, 128, "bfloat16", None, last_q, full_kv, True),
+    ]
+    # head_dim 16, the reduced configs' width: decode over 4,096 slots with
+    # rows at their own depths, long causal and windowed prefills, and the
+    # reduced deepseek-7b's own calls (fp32): a prefill of 3 x 12 tokens into
+    # a 32-slot cache, and a decode step of the calibrated curve's largest
+    # batch (128 rows at slot 24 of 64)
+    k16_q = (torch.arange(1, 9, **i32) * 512 - 1)[:, None]
+    k16_kv = torch.arange(4096, **i32)
+    ar32, ar64 = torch.arange(32, **i32), torch.arange(64, **i32)
+    cases += [
+        ("decode_k16", 8, 1, 4096, 32, 8, 16, "float32", None, k16_q, k16_kv, True),
+        ("decode_k16", 8, 1, 4096, 32, 8, 16, "bfloat16", None, k16_q, k16_kv, True),
+        ("prefill_k16", 4, 2048, 2048, 32, 8, 16, "bfloat16", None, None, None, True),
+        ("prefill_k16", 4, 2048, 2048, 32, 8, 16, "bfloat16", 256, None, None, True),
+        ("reduced_prefill_k16", 3, 12, 32, 4, 2, 16, "float32", None,
+         torch.arange(12, **i32), torch.where(ar32 < 12, ar32, -1), True),
+        ("reduced_decode_k16", 128, 1, 64, 4, 2, 16, "float32", None,
+         torch.full((128, 1), 24, **i32), torch.where(ar64 <= 24, ar64, -1), True),
     ]
     gen = torch.Generator(device=dev).manual_seed(2)
     out = []
@@ -617,13 +641,14 @@ def prefill_decode_consistency(torch, np, cfg, params):
 
 
 def small_model_against_cpu(torch, np, ops):
-    """A small model (head_dim 64, fp32) on the card through the kernels
-    against the same weights on the CPU through the plain versions."""
+    """Reduced deepseek-7b (its own head_dim 16, fp32) on the card through
+    the kernels against the same weights on the CPU through the plain
+    versions."""
     from repro_torch.configs import reduced_config
     from repro_torch.models import Model
 
     tol = 1e-4
-    cfg = reduced_config("deepseek-7b", head_dim=64)
+    cfg = reduced_config("deepseek-7b")
     cpu, gpu = Model(cfg, device="cpu"), Model(cfg)
     p_cpu = cpu.init(torch.Generator().manual_seed(3))
     p_gpu = _tree_to(p_cpu, gpu.device)
@@ -641,15 +666,16 @@ def small_model_against_cpu(torch, np, ops):
             outs.append(model.decode_step(params, cache, tok, pos)[0].cpu())
         return outs
 
-    before = dict(ops.FLASH_ROUTES)
+    before = _launch_counts(ops)
     out_gpu = run(gpu, p_gpu)
-    routes = {r: ops.FLASH_ROUTES[r] - before[r] for r in before}
+    shapes = _flash_shapes(_diff(_launch_counts(ops), before))
     # fp32: the prefill takes the FMA route, the decode steps the decode route
-    want = {"decode": 4 * cfg.n_layers, "mma_prefill": 0, "fma": cfg.n_layers}
-    assert routes == want, (routes, want)
+    want = {"decode K=16 causal": 4 * cfg.n_layers, "fma K=16 causal": cfg.n_layers}
+    assert shapes == want, (shapes, want)
     worst = max((a - b).abs().max().item() for a, b in zip(out_gpu, run(cpu, p_cpu)))
-    log(f"small model: cuda kernels vs cpu plain path, prefill + 4 decode steps, "
-        f"max abs logit err {worst:.3e} (tol {tol}); flash by route {routes}")
+    log(f"small model: reduced {cfg.name} (head_dim {cfg.head_dim}), cuda kernels vs cpu plain "
+        f"path, prefill + 4 decode steps, max abs logit err {worst:.3e} (tol {tol}); flash by "
+        f"shape {shapes}")
     assert worst <= tol, worst
 
 
@@ -825,20 +851,54 @@ def profile_prefill(torch, np, cfg, params, S: int = 300):
             f"{e.count:5d}x  {e.key[:90]}")
 
 
+CALIBRATE_BATCHES = (1, 8, 32, 128)
+CALIBRATE_STEPS = 24
+
+
 def calibrate_phase(cfg, params, card):
     """The decode-step latency curve of ``cfg``'s engine on the card, logged
-    and returned (phase 12 runs the scheduler on it)."""
+    and returned (phase 12 runs the scheduler on it): the reference's own
+    recipe (benchmarks/README.md, "Refreshing the serve baseline"),
+    ``calibrate(ServeEngine(cfg, params, max_len=64))`` at its default
+    batch sizes and steps."""
     from repro_torch.serve.engine import ServeEngine
     from repro_torch.serve.latency import calibrate
 
-    engine = ServeEngine(cfg, params, max_len=64, batch_size=128)
+    engine = ServeEngine(cfg, params, max_len=64)
     t0 = time.perf_counter()
-    curve = calibrate(engine, batch_sizes=(1, 8, 32, 128), steps=24)
-    log(f"calibrate: {card}; {cfg.name} full width bf16, max_len 64, batch sizes "
-        f"(1, 8, 32, 128), 24 steps each: base {curve.base!r} s, per_req {curve.per_req!r} s "
+    curve = calibrate(engine, batch_sizes=CALIBRATE_BATCHES, steps=CALIBRATE_STEPS)
+    log(f"calibrate: {card}; {cfg.name} {cfg.n_layers} layers, d_model {cfg.d_model}, head_dim "
+        f"{cfg.head_dim}, {cfg.dtype}, max_len 64, batch sizes {CALIBRATE_BATCHES}, "
+        f"{CALIBRATE_STEPS} steps each: base {curve.base!r} s, per_req {curve.per_req!r} s "
         f"({time.perf_counter() - t0:.1f} s); step_time(b) ms: "
-        + ", ".join(f"{b}: {curve.step_time(b) * 1e3:.3f}" for b in (1, 8, 32, 128)))
+        + ", ".join(f"{b}: {curve.step_time(b) * 1e3:.3f}" for b in CALIBRATE_BATCHES))
     return curve
+
+
+def reduced_curve_phase(torch, ops, dev, card):
+    """The curve the reference's ``DEFAULT_SERVE_MODEL`` was measured on,
+    measured on the card: reduced deepseek-7b (float32, head_dim 16,
+    weights from seed 0) through ``calibrate_phase``, with the launch
+    counters set to 0 just before and read just after.  Every decode step
+    (a warm-up and the timed steps at each batch size) launches one
+    ``decode K=16 causal`` attention kernel a layer and nothing else of
+    flash.  Returns the run's launches and the curve."""
+    from repro_torch.configs import reduced_config
+    from repro_torch.models import Model
+
+    cfg = reduced_config("deepseek-7b")
+    params = init_params(torch, Model, cfg, dev)
+    ops.reset_launches()
+    curve = calibrate_phase(cfg, params, card)
+    counts = _launch_counts(ops)
+    steps, L = len(CALIBRATE_BATCHES) * (CALIBRATE_STEPS + 1), cfg.n_layers
+    shapes = _flash_shapes(counts)
+    log(f"calibrate: reduced {cfg.name}: {steps} decode steps, launches {dict(ops.LAUNCHES)}, "
+        f"flash by shape {shapes}")
+    assert shapes == {"decode K=16 causal": steps * L}, shapes
+    assert dict(ops.LAUNCHES) == {"rmsnorm": steps * (2 * L + 1), "flash_attention": steps * L,
+                                  "ssd_scan": 0}, ops.LAUNCHES
+    return counts, curve
 
 
 # --------------------------------------------------------------------------
@@ -923,7 +983,7 @@ def serve_moe(torch, np, cfg, params, ops, lengths):
 
 
 def small_moe_against_cpu(torch, np, ops):
-    """Reduced qwen3-moe-30b-a3b (head_dim 64, fp32) on the card through
+    """Reduced qwen3-moe-30b-a3b (head_dim 16, fp32) on the card through
     the kernels against the same weights on the CPU through the plain
     versions: a prefill of 3 x 12 tokens and 4 decode steps at per-row
     positions, at capacity_factor 0.5, where the prefill drops pairs.  The
@@ -935,7 +995,7 @@ def small_moe_against_cpu(torch, np, ops):
     from repro_torch.models import Model
 
     tol = 1e-4
-    cfg = dataclasses.replace(reduced_config("qwen3-moe-30b-a3b", head_dim=64), capacity_factor=0.5)
+    cfg = dataclasses.replace(reduced_config("qwen3-moe-30b-a3b"), capacity_factor=0.5)
     cpu, gpu = Model(cfg, device="cpu"), Model(cfg)
     p_cpu = cpu.init(torch.Generator().manual_seed(12))
     p_gpu = _tree_to(p_cpu, gpu.device)
@@ -953,9 +1013,9 @@ def small_moe_against_cpu(torch, np, ops):
                 outs.append(model.decode_step(params, cache, toks[:, 12 + i : 13 + i].to(dev), pos)[0].cpu())
         return outs, [(r.capacity, r.top_i.cpu(), r.keep.cpu()) for r in rl.records]
 
-    n0 = dict(ops.LAUNCHES)
+    n0 = _launch_counts(ops)
     out_gpu, r_gpu = run(gpu, p_gpu)
-    launches = {k: ops.LAUNCHES[k] - n0[k] for k in n0}
+    launches = {k: v for k, v in _diff(_launch_counts(ops), n0).items() if v}
     out_cpu, r_cpu = run(cpu, p_cpu)
     worst = max((a - b).abs().max().item() for a, b in zip(out_gpu, out_cpu))
     same = len(r_gpu) == len(r_cpu) == 5 * cfg.n_layers and all(
@@ -967,7 +1027,9 @@ def small_moe_against_cpu(torch, np, ops):
         f"dropped pairs in all {len(r_gpu)} routing calls: {same}; {dropped} pairs dropped "
         f"(prefill capacity {r_gpu[0][0]}); launches {launches}")
     L = cfg.n_layers
-    assert launches == {"rmsnorm": 5 * (4 * L + 1), "flash_attention": 5 * L, "ssd_scan": 0}, launches
+    assert launches == {"rmsnorm": 5 * (4 * L + 1), "flash_attention": 5 * L,
+                        "flash/fma": L, "flash/fma K=16 causal": L,
+                        "flash/decode": 4 * L, "flash/decode K=16 causal": 4 * L}, launches
     assert same and dropped > 0 and worst <= tol, (same, dropped, worst)
 
 
@@ -1010,6 +1072,13 @@ def _launch_counts(ops):
 
 def _diff(after, before):
     return {k: after[k] - before.get(k, 0) for k in after}
+
+
+def _flash_shapes(counts):
+    """The flash launches of ``counts`` (``_launch_counts``) by shape,
+    ``{"decode K=16 causal": n}``, those not launched left out."""
+    return {k[len("flash/"):]: n for k, n in counts.items()
+            if k.startswith("flash/") and " K=" in k and n}
 
 
 def expected_first_loss(cfg) -> float:
@@ -1238,7 +1307,7 @@ def profile_mamba_step(torch, cfg):
 
 
 def small_train_against_cpu(torch, ops, steps: int = 3):
-    """Small float32 models (reduced deepseek-7b at head_dim 64, reduced
+    """Small float32 models (reduced deepseek-7b at its head_dim 16, reduced
     mamba2-370m) trained on the card through the kernels and on the CPU
     through the plain versions, from the same weights and batches.  Losses
     within 1e-5 relative at every step.  Params: an Adam step is about
@@ -1257,8 +1326,8 @@ def small_train_against_cpu(torch, ops, steps: int = 3):
 
     opt = AdamWConfig(lr_peak=1e-3, warmup_steps=2, total_steps=10)
     bound = 2 * sum(float(cosine_lr(opt, torch.tensor(s + 1))) for s in range(steps))
-    for arch, kw in (("deepseek-7b", {"head_dim": 64}), ("mamba2-370m", {})):
-        cfg = reduced_config(arch, **kw)
+    for arch in ("deepseek-7b", "mamba2-370m"):
+        cfg = reduced_config(arch)
         cpu, gpu = Model(cfg, device="cpu"), Model(cfg)
         s_cpu = init_train_state(cpu, torch.Generator().manual_seed(11))
         # a copy: the steps update each state's tensors in place
@@ -1285,7 +1354,7 @@ def small_train_against_cpu(torch, ops, steps: int = 3):
             f"{loss_err:.3e} (tol 1e-5); params worst abs err {worst:.3e} (bound {bound:.3e}), "
             f"largest share of a leaf off by > 1e-5 {share:.2e} (tol 1e-3); launches {launches}")
         L = cfg.n_layers
-        mixer = {"deepseek-7b": ("flash_attention", "flash/fma", "flash/fma K=64 causal"),
+        mixer = {"deepseek-7b": ("flash_attention", "flash/fma", "flash/fma K=16 causal"),
                  "mamba2-370m": ("ssd_scan", "ssd/fma")}
         assert launches == {"rmsnorm": steps * (4 * L + 1),
                             **{k: steps * 2 * L for k in mixer[arch]}}, launches
@@ -1558,7 +1627,7 @@ def swa_phase(torch, np, ops, dev):
 def hybrid_phase(torch, np, ops):
     """The hybrid family on the card, cut: reduced jamba-1.5-large-398b
     (two super-blocks of 8 layers: attention at the 5th, Mamba elsewhere,
-    MoE on every 2nd) at head_dim 64, fp32.  Prefill of 2 x 12 tokens and
+    MoE on every 2nd) at its own head_dim 16, fp32.  Prefill of 2 x 12 tokens and
     4 decode steps at per-row positions on the card against the CPU
     (logits within 1e-4, the same experts and dropped pairs in every
     routing call); then ServeEngine serves prompts of 3 or more tokens on
@@ -1571,7 +1640,7 @@ def hybrid_phase(torch, np, ops):
     from repro_torch.serve.engine import Request, ServeEngine
 
     tol = 1e-4
-    cfg = reduced_config("jamba-1.5-large-398b", head_dim=64)
+    cfg = reduced_config("jamba-1.5-large-398b")
     cpu, gpu = Model(cfg, device="cpu"), Model(cfg)
     p_cpu = cpu.init(torch.Generator().manual_seed(16))
     p_gpu = _tree_to(p_cpu, gpu.device)
@@ -1587,7 +1656,9 @@ def hybrid_phase(torch, np, ops):
                 outs.append(model.decode_step(params, cache, toks[:, 12 + i : 13 + i].to(dev), pos)[0].cpu())
         return outs, [(r.capacity, r.top_i.cpu(), r.keep.cpu()) for r in rl.records]
 
+    before = _launch_counts(ops)
     out_gpu, r_gpu = run(gpu, p_gpu)
+    shapes = _flash_shapes(_diff(_launch_counts(ops), before))
     out_cpu, r_cpu = run(cpu, p_cpu)
     worst = max((a - b).abs().max().item() for a, b in zip(out_gpu, out_cpu))
     moe_layers = sum(f == "moe" for _, f in cfg.layer_kinds()) * cfg.n_scan_blocks
@@ -1595,14 +1666,16 @@ def hybrid_phase(torch, np, ops):
         a[0] == b[0] and torch.equal(a[1], b[1]) and torch.equal(a[2], b[2])
         for a, b in zip(r_gpu, r_cpu))
     dropped = sum(int((~keep).sum()) for *_, keep in r_gpu)
-    log(f"hybrid {cfg.name} (reduced, head_dim 64, fp32): card kernels vs cpu plain path, prefill "
-        f"2 x 12 + 4 decode steps: max abs logit err {worst:.3e} (tol {tol}); the same experts and "
-        f"dropped pairs in all {len(r_gpu)} routing calls: {same} ({dropped} pairs dropped)")
-    assert same and worst <= tol, (same, worst)
-
     nb = cfg.n_scan_blocks
     kinds = cfg.layer_kinds()
     n_attn = nb * sum(m == "attn" for m, _ in kinds)
+    log(f"hybrid {cfg.name} (reduced, head_dim {cfg.head_dim}, fp32): card kernels vs cpu plain "
+        f"path, prefill 2 x 12 + 4 decode steps: max abs logit err {worst:.3e} (tol {tol}); the "
+        f"same experts and dropped pairs in all {len(r_gpu)} routing calls: {same} ({dropped} "
+        f"pairs dropped); flash by shape {shapes}")
+    assert same and worst <= tol, (same, worst)
+    assert shapes == {"fma K=16 causal": n_attn, "decode K=16 causal": 4 * n_attn}, shapes
+
     n_mamba = nb * sum(m == "mamba" for m, _ in kinds)
     # every sub-layer has ln1 and ln2 (dense or MoE ff); a Mamba layer adds
     # its gated norm
@@ -2110,8 +2183,7 @@ def kernels_line(results, path_launches, ops):
         for k, v in counts.items():
             total[k] = total.get(k, 0) + v
     flash_routes = {r: total[f"flash/{r}"] for r in ops.FLASH_ROUTES}
-    flash_shapes = {k[len("flash/"):]: v for k, v in total.items()
-                    if k.startswith("flash/") and " K=" in k and v}
+    flash_shapes = _flash_shapes(total)
     ssd_routes = {r: total[f"ssd/{r}"] for r in ops.SSD_ROUTES}
     line = []
     for name, source, replaces, chosen in (
@@ -2215,7 +2287,9 @@ def main(argv=None) -> int:
             parallel_phase(torch, ops, dev)
         if "sched" in args.only:
             cfg = get_config("deepseek-7b")
-            sched_phase(card, {cfg.name: calibrate_phase(cfg, init_params(torch, Model, cfg, dev), card)})
+            curves = {cfg.name: calibrate_phase(cfg, init_params(torch, Model, cfg, dev), card)}
+            curves["deepseek-7b reduced"] = reduced_curve_phase(torch, ops, dev, card)[1]
+            sched_phase(card, curves)
         log(f"only {args.only} from {args.src}: done in {time.perf_counter() - t_start:.1f} s")
         return 0
 
@@ -2239,6 +2313,9 @@ def main(argv=None) -> int:
     curves = {cfg.name: calibrate_phase(cfg, params, card)}
     del params
     torch.cuda.empty_cache()
+    # the reference's default curve's own config, calibrated on the card
+    path_launches["deepseek-7b/reduced curve"], curves["deepseek-7b reduced"] = \
+        reduced_curve_phase(torch, ops, dev, card)
 
     # 7. serve mamba2-370m at full width (main path 2), and its checks
     cfg = get_config("mamba2-370m")

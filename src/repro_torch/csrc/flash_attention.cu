@@ -57,16 +57,18 @@
 //    fp32, plain FMA.  TF32 tensor cores would break float32's tolerance,
 //    and this kernel already beats PyTorch's SDPA at the float32 shapes.
 //
-// Head dims: 64, 80, 120 and 128 (hubert-xlarge has 80, h2o-danube-3-4b
-// 120), each a build of its own.  Every route tiles the head dim in powers
-// of two or in 16s, so a route computes over a padded width and stages the
-// dims past K as zeros, which add nothing to q.k and give output columns
-// that are never stored: fma and decode pad 80 and 120 to 128 (decode's
-// lanes past K load nothing, so no byte more is read), mma_prefill rounds
-// up to its 16-element mma depth (80 stays, 120 -> 128; cp.async
-// zero-fills the pad).  Rows stay 16-byte aligned at both widths in both
-// types (160, 240, 320, 480 bytes), and the softmax scale is the true
-// K**-0.5.
+// Head dims: 16, 64, 80, 120 and 128 (the reduced configs have 16,
+// hubert-xlarge 80, h2o-danube-3-4b 120), each a build of its own.  Every
+// route tiles the head dim in powers of two or in 16s, so a route computes
+// over a padded width and stages the dims past K as zeros, which add
+// nothing to q.k and give output columns that are never stored: fma pads
+// 16 to 32 (one output dim a lane) and 80 and 120 to 128; decode takes 16
+// at its own width (a key row is 2 or 4 lanes' loads, so a warp-wide load
+// covers 16 or 8 keys) and pads 80 and 120 to 128 (its lanes past K load
+// nothing, so no byte more is read); mma_prefill rounds up to its
+// 16-element mma depth (16 and 80 stay, 120 -> 128; cp.async zero-fills the
+// pad).  Rows stay 16-byte aligned at every width in both types (32, 64,
+// 160, 240, 320, 480 bytes), and the softmax scale is the true K**-0.5.
 //
 // Skipping keys, in every route: keys are skipped only where their weight
 // is exactly 0 for every row of the block.  A masked key's weight is
@@ -155,7 +157,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  int64_t q_pos_bstride, const int* __restrict__ kv_pos,
                  T* __restrict__ out, int Sq, int T_len, int H, int G,
                  int causal, int has_window, int window, float sm_scale) {
-  constexpr int KP = K <= 64 ? 64 : 128;  // staged width: dims past K are zeros
+  constexpr int KP = K <= 32 ? 32 : (K <= 64 ? 64 : 128);  // staged width: dims past K are zeros
   constexpr int DPL = KP / 32;  // output dimensions per lane
   constexpr int VN = Vec<T>::N;
   __shared__ __align__(16) float qs[kBQ][KP];
@@ -271,9 +273,11 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
       if constexpr (DPL == 4) {
         const float4 a = reinterpret_cast<const float4*>(&vs[j][0])[lane];
         vv[0] = a.x; vv[1] = a.y; vv[2] = a.z; vv[3] = a.w;
-      } else {
+      } else if constexpr (DPL == 2) {
         const float2 a = reinterpret_cast<const float2*>(&vs[j][0])[lane];
         vv[0] = a.x; vv[1] = a.y;
+      } else {
+        vv[0] = vs[j][lane];
       }
 #pragma unroll
       for (int i = 0; i < kRowsPerWarp; ++i) {
@@ -316,7 +320,9 @@ flash_decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
                     int64_t q_pos_bstride, const int* __restrict__ kv_pos,
                     T* __restrict__ out, int T_len, int H, int G, int causal,
                     int has_window, int window, float scale_log2) {
-  constexpr int KP = K <= 64 ? 64 : 128;  // row width in lanes' loads: dims past K are zeros
+  // row width in lanes' loads: dims past K are zeros; 16 stays 16, so a
+  // warp-wide load holds 8 (fp32) or 16 (bf16) keys and no lane idles
+  constexpr int KP = K <= 16 ? 16 : (K <= 64 ? 64 : 128);
   constexpr int VN = Vec<T>::N;   // elements per 16-byte load
   constexpr int LPK = KP / VN;    // lanes per key row
   constexpr int KPI = 32 / LPK;   // keys per warp-wide load
@@ -510,7 +516,7 @@ constexpr int kBN = 64;               // keys per tile
 constexpr int kStages = 2;            // K/V tiles in the cp.async ring
 
 // The width the tensor-core route computes over: K rounded up to the
-// 16-element depth of an mma.sync step (120 -> 128; 64, 80, 128 stay);
+// 16-element depth of an mma.sync step (120 -> 128; 16, 64, 80, 128 stay);
 // the dims past K are staged as zeros.
 template <int K>
 __host__ __device__ constexpr int mma_width() {
@@ -987,6 +993,7 @@ int launch_mma(const Call& c) {
 template <typename F>
 int with_head_dim(int K, F f) {
   switch (K) {
+    case 16: return f(std::integral_constant<int, 16>{});
     case 64: return f(std::integral_constant<int, 64>{});
     case 80: return f(std::integral_constant<int, 80>{});
     case 120: return f(std::integral_constant<int, 120>{});
@@ -999,7 +1006,7 @@ int with_head_dim(int K, F f) {
 
 // q [B,Sq,H,K], k/v [B,T,G,K], out [B,Sq,H,K], all contiguous and 16-byte
 // aligned; q_pos int32 with q_pos[b*q_pos_bstride + s]; kv_pos int32 [T].
-// dtype: 0 = float32, 1 = bfloat16; K is 64, 80, 120 or 128.  route: 0 =
+// dtype: 0 = float32, 1 = bfloat16; K is 16, 64, 80, 120 or 128.  route: 0 =
 // fma (float32), 1 = decode (Sq == 1), 2 = mma_prefill (bfloat16).
 // Returns cudaGetLastError() after the launch (0 on success).
 extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v,

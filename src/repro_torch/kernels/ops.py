@@ -83,7 +83,7 @@ _SSD_ROUTE_CODES = {"fma": 0, "mma": 1}  # csrc/ssd_scan.cu
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 # the cases of csrc/flash_attention.cu's with_head_dim, which
 # tests/test_torch_kernels.py holds equal to this tuple
-_HEAD_DIMS = (64, 80, 120, 128)
+_HEAD_DIMS = (16, 64, 80, 120, 128)
 _SSD_SIZES = (16, 32, 64, 128)  # the SSD kernel's P, N and chunk
 _SSD_MMA_SIZES = (64, 128)  # N and chunk of the SSD scan's tensor-core route
 
@@ -308,7 +308,7 @@ def flash_attention(
 ) -> torch.Tensor:
     """Online-softmax GQA attention.  Any Sq and T; the KV head of query
     head h is h // (H // G); masks come from the positions; output in q's
-    dtype.  On the card: head_dim 64, 80, 120 or 128, float32 or bfloat16, one
+    dtype.  On the card: head_dim 16, 64, 80, 120 or 128, float32 or bfloat16, one
     launch of the kernel ``_flash_route`` names; the backward recomputes
     ``ref.flash_attention_ref`` (the gradient of the fp32 plain function,
     as in the JAX package)."""

@@ -16,6 +16,14 @@ in the reference.  Layouts are the JAX package's:
 The cache is written in place.  Unlike the reference, the conv window of a
 prompt shorter than k-1 tokens is left-padded with zeros, the padding the
 causal conv itself applies (ROADMAP.md, C1).
+
+On DTensors (``_placed_mix``) the prefill's products and conv run on
+`model`-split operands: z, x, (B, C) and dt are separate products with
+column blocks of in_proj, each split over `model` (x on head boundaries),
+so each weight gradient is a local product; the conv runs on each rank's
+channels, and then B and C are gathered whole for the scan; y is split
+again after the gated norm, so out_proj's product is row-parallel.  Plain
+tensors take the code path the JAX parity tests hold.
 """
 from __future__ import annotations
 
@@ -23,11 +31,11 @@ from typing import Any, Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
-from torch.distributed.tensor import DTensor
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+from torch.distributed.tensor.experimental import local_map
 
 from ..configs.base import ArchConfig
 from ..kernels import ops
-from ..parallel import opt_flags
 from ..parallel import sharding as sh
 from ..dtensor_util import unsplit
 from . import layers as L
@@ -79,11 +87,79 @@ def _causal_conv(xbc: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.T
 def _gate_and_project(
     p: Params, y: torch.Tensor, z: torch.Tensor
 ) -> torch.Tensor:
-    """rms_norm(y * silu(z)) @ out_proj, for y and z [B,S,di] in x's dtype."""
+    """rms_norm(y * silu(z)) @ out_proj, for y and z [B,S,di] in x's dtype.
+    On DTensors the normed y is split over `model` again (a local slice),
+    so the product is row-parallel, as out_proj is placed: its output's
+    partial sums are reduced over `model`, and out_proj's gradient is each
+    rank's ``[di/model, D]``."""
     B, S, di = y.shape
     # the norm needs all of d_inner: gathered where tensor parallelism split it
     y = L.rms_norm(unsplit(y * F.silu(z), -1), p["norm"])
-    return (y.reshape(B * S, di) @ p["out_proj"]).view(B, S, -1)
+    if isinstance(y, DTensor) and sh.maybe(y.device_mesh, di, "model"):
+        y = _on_model(y, 2)
+    out = (y.reshape(B * S, di) @ p["out_proj"]).view(B, S, -1)
+    if isinstance(out, DTensor) and any(q.is_partial() for q in out.placements):
+        out = out.redistribute(out.device_mesh, tuple(
+            Replicate() if q.is_partial() else q for q in out.placements))
+    return out
+
+
+def _on_model(t: DTensor, dim: int) -> DTensor:
+    """``t`` split on ``dim`` over `model`, its other mesh dims as they
+    are; from a ``t`` whole on `model`, a local slice."""
+    names = t.device_mesh.mesh_dim_names
+    want = tuple(Shard(dim) if n == "model" else q for n, q in zip(names, t.placements))
+    return t if want == t.placements else t.redistribute(t.device_mesh, want)
+
+
+def _conv_on_ranks(t: DTensor, w: DTensor, b: DTensor) -> DTensor:
+    """``_causal_conv`` of ``t [B,S,C]`` (in t's dtype) on each rank's
+    rows and channels, ``w [k,C]`` and ``b [C]`` placed alike on the
+    channels: the depthwise conv is channel-local.  The gradients of w and
+    b are each rank's partial sums over its batch rows."""
+    tp = t.placements
+    over_batch = lambda q: tuple(  # noqa: E731
+        Partial() if tq == Shard(0) else wq for tq, wq in zip(tp, q))
+    return local_map(
+        lambda a, w_, b_: _causal_conv(a, w_, b_).to(a.dtype),
+        out_placements=(tp,), in_placements=(tp, w.placements, b.placements),
+        in_grad_placements=(tp, over_batch(w.placements), over_batch(b.placements)),
+        device_mesh=t.device_mesh,
+    )(t, w, b)
+
+
+def _placed_mix(p: Params, cfg: ArchConfig, x: DTensor):
+    """The in_proj products and the causal conv of ``apply_mamba`` on
+    DTensors, none whole on a device: x's rows over the batch axes, and z,
+    x, (B, C) and dt each the product with its own column block of
+    in_proj, split over `model` where it divides (z, x and dt where the
+    heads do: x then on head boundaries, as the scan takes it).  The
+    blocks come from in_proj gathered whole over `model` (a weight, not an
+    activation); each block's gradient is a local product, and the leaf's
+    gradient is the blocks' put back together, each rank keeping its own
+    columns.  The conv runs on each rank's channels; then B and C are
+    gathered whole, as every rank's heads read all of them.  Returns (z,
+    xs, bc, dt_raw, x_pre, bc_pre): xs the conv's x channels, bc its B and
+    C channels, x_pre and bc_pre the same before the conv."""
+    di, N, H = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads
+    B, S, D = x.shape
+    mesh = x.device_mesh
+    x = sh.constrain(x, (sh.batch_axes(mesh, B), None, None))
+    heads = sh.maybe(mesh, H, "model") is not None
+    bc_split = sh.maybe(mesh, 2 * N, "model") is not None
+    # where a block stays whole, a copy of it, unless in_proj was whole
+    # already: a view would keep the gathered in_proj alive for the backward
+    gathered = sh.axis_size(mesh, "model") > 1
+    cut = lambda t, dim, ok: _on_model(t, dim) if ok else (  # noqa: E731
+        t.contiguous() if gathered else t)
+    xt = x.reshape(B * S, D)
+    w_z, w_x, w_bc, w_dt = unsplit(p["in_proj"], 1).split([di, di, 2 * N, H], dim=1)
+    z, x_pre, bc_pre, dt_raw = ((xt @ cut(w, 1, ok)).view(B, S, -1) for w, ok in (
+        (w_z, heads), (w_x, heads), (w_bc, bc_split), (w_dt, heads)))
+    (cw_x, cw_bc), (cb_x, cb_bc) = p["conv_w"].split([di, 2 * N], 1), p["conv_b"].split([di, 2 * N])
+    xs = _conv_on_ranks(x_pre, cut(cw_x, 1, heads), cut(cb_x, 0, heads))
+    bc = unsplit(_conv_on_ranks(bc_pre, cut(cw_bc, 1, bc_split), cut(cb_bc, 0, bc_split)), -1)
+    return z, xs, bc, dt_raw, x_pre, bc_pre
 
 
 def apply_mamba(
@@ -97,21 +173,20 @@ def apply_mamba(
     after the last token."""
     di, N, H, P = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads, cfg.ssm_head_dim
     B, S, D = x.shape
-    proj = (x.reshape(B * S, D) @ p["in_proj"]).view(B, S, -1)
-    z, xbc_pre, dt_raw = _split_proj(cfg, proj)
-    xbc = _causal_conv(xbc_pre, p["conv_w"], p["conv_b"]).to(x.dtype)
-    xh = xbc[..., :di].view(B, S, H, P)  # strided views: the kernel reads
-    Bm = xbc[..., di : di + N]  # them in place
-    Cm = xbc[..., di + N :]
+    if isinstance(x, DTensor):
+        z, xs, bc, dt_raw, x_pre, bc_pre = _placed_mix(p, cfg, x)
+        xh, Bm, Cm = xs.view(B, S, H, P), bc[..., :N], bc[..., N:]
+        tail = lambda s0: torch.cat([x_pre[:, s0:], bc_pre[:, s0:]], dim=-1)  # noqa: E731
+    else:
+        proj = (x.reshape(B * S, D) @ p["in_proj"]).view(B, S, -1)
+        z, xbc_pre, dt_raw = _split_proj(cfg, proj)
+        xbc = _causal_conv(xbc_pre, p["conv_w"], p["conv_b"]).to(x.dtype)
+        xh = xbc[..., :di].view(B, S, H, P)  # strided views: the kernel reads
+        Bm = xbc[..., di : di + N]  # them in place
+        Cm = xbc[..., di + N :]
+        tail = lambda s0: xbc_pre[:, s0:]  # noqa: E731
     dt = F.softplus(dt_raw.float() + p["dt_bias"])
     A = -torch.exp(p["A_log"])
-    if opt_flags.get("mamba_heads") and isinstance(xh, DTensor) \
-            and sh.maybe(xh.device_mesh, H, "model"):
-        # the reference's sharding constraint: the scan's heads split over
-        # `model`, so its per-chunk buffers shrink with the TP degree
-        b = opt_flags.get("batch_axes")
-        xh = sh.constrain(xh, (b, None, "model", None))
-        dt = sh.constrain(dt, (b, None, "model"))
     y, state = ops.ssd_scan(xh, dt, A, Bm, Cm, cfg.ssm_chunk, out_dtype=torch.float32)
     # the D skip in fp32, then x's dtype (as the reference orders it)
     y = (y + p["D"][:, None] * xh.float()).reshape(B, S, di).to(x.dtype)
@@ -123,7 +198,7 @@ def apply_mamba(
         conv = cache["conv"]
         n = min(S, conv.shape[1])
         conv[:, : conv.shape[1] - n].zero_()
-        conv[:, conv.shape[1] - n :].copy_(xbc_pre[:, S - n :])
+        conv[:, conv.shape[1] - n :].copy_(tail(S - n))
         cache["ssm"].copy_(state)
     return out
 

@@ -5,7 +5,9 @@ Set by ``launch/dryrun.py`` (``--opt a,b,c``) before a step runs; read by
 the model code as it runs.  Flags:
 
   sp           — sequence-parallel residual stream (model.py)
-  mamba_heads  — shard SSD heads over `model` inside the mamba mixer
+  mamba_heads  — shard SSD heads over `model` inside the mamba mixer (the
+                 port's Mamba block on DTensors always does where the
+                 heads divide: models/mamba.py::_placed_mix)
   moe_ep       — expert-parallel placement of the MoE dispatch slabs
   moe_a2a      — local-dispatch expert-parallel MoE (moe.apply_moe_shard_map)
   sp_sub       — per-sublayer resharding (kept for ablation, as in the reference)

@@ -37,6 +37,11 @@ from repro_torch.tree import leaves_with_paths, tree_map
 PARITY = {
     "deepseek-7b/sp": ("deepseek-7b", ("sp",), {}),
     "mamba2-370m/mamba_heads": ("mamba2-370m", ("mamba_heads",), {}),
+    # the hybrid's one super-block of 8 layers (attention, Mamba, the placed
+    # MoE and dense FF); at two (16 fp32 layers) the grads' own rounding noise
+    # is above TOL: a 1e-7 relative change of every weight moves a leaf's
+    # grad by up to 2.9e-5 of its largest magnitude
+    "jamba-1.5-large-398b": ("jamba-1.5-large-398b", (), {"n_layers": 8}),
     "qwen3-moe-30b-a3b/moe_ep": ("qwen3-moe-30b-a3b", ("moe_ep",), {}),
     # no pair drops at this capacity, as in tests/test_moe_shard_map.py
     "qwen3-moe-30b-a3b/moe_a2a": ("qwen3-moe-30b-a3b", ("moe_a2a",), {"capacity_factor": 8.0}),

@@ -24,9 +24,8 @@ against the JAX package's.
   report adds up: the ops' FLOPs to the cell's, the storages live at the
   peak (the softmax backward's scratch among them) to its peak.
 
-The reduced configs run at head_dim 64 and in bf16: on the meta device
-the wrappers check what the card's kernels take, and 16 is not a head
-dim they are built for.
+The reduced configs run at head_dim 64 and in bf16, widths the card's
+kernels take (on the meta device the wrappers check what they take).
 """
 import dataclasses
 

@@ -402,7 +402,7 @@ def test_flash_head_dims_per_row_decode_match_jax_attention(K):
 def test_flash_head_dims_of_the_kernel():
     """The widths the CUDA kernel is built for: the cases of
     csrc/flash_attention.cu's with_head_dim are ops._HEAD_DIMS, and cover
-    every head_dim of a registered config."""
+    every head_dim of a registered config and of its reduced config."""
     import re
     from pathlib import Path
 
@@ -410,5 +410,6 @@ def test_flash_head_dims_of_the_kernel():
     switch = re.search(r"int with_head_dim\(int K, F f\) \{(.*?)\n\}", src, re.S).group(1)
     cases = re.findall(r"case (\d+): return f\(std::integral_constant<int, (\d+)>", switch)
     assert cases and all(a == b for a, b in cases)
-    assert tuple(int(a) for a, _ in cases) == ops._HEAD_DIMS == (64, 80, 120, 128)
+    assert tuple(int(a) for a, _ in cases) == ops._HEAD_DIMS == (16, 64, 80, 120, 128)
     assert {get_config(a).head_dim for a in list_archs()} <= set(ops._HEAD_DIMS)
+    assert {reduced_config(a).head_dim for a in list_archs()} == {16}

@@ -81,6 +81,7 @@ def _flash_pair(q, k, v, qpos, kpos, causal, window, dtype="float32"):
         (1, 128, 128, 4, 1, 128),  # MQA
         (1, 128, 384, 4, 2, 128),  # cache longer than queries
         (2, 128, 128, 4, 2, 64),  # small head dim
+        (2, 128, 128, 4, 2, 16),  # the reduced configs' head dim
     ],
 )
 def test_flash_matches_pallas(shape):
@@ -90,16 +91,19 @@ def test_flash_matches_pallas(shape):
 
 @pytest.mark.parametrize(
     "case",
-    ["window", "non_causal", "empty_slots"],
+    ["window", "non_causal", "empty_slots", "window_k16", "non_causal_k16", "empty_slots_k16"],
 )
 def test_flash_masks_match_pallas(case):
-    q, k, v, qpos, kpos = _mk(1, 128, 256, 4, 2, 128)
+    """Each mask at the head dims the tests of the JAX package use, and
+    again at the reduced configs' head dim 16 (the ``_k16`` cases)."""
+    k16 = case.endswith("_k16")
+    q, k, v, qpos, kpos = _mk(1, 128, 256, 4, 2, 16 if k16 else 128)
     causal, window = True, None
-    if case == "window":
-        q, k, v, qpos, kpos = _mk(1, 256, 256, 4, 2, 128)
+    if case.startswith("window"):
+        q, k, v, qpos, kpos = _mk(1, 256, 256, 4, 2, 16 if k16 else 128)
         window = 96
-    elif case == "non_causal":
-        q, k, v, qpos, kpos = _mk(2, 128, 128, 4, 4, 64)
+    elif case.startswith("non_causal"):
+        q, k, v, qpos, kpos = _mk(2, 128, 128, 4, 4, 16 if k16 else 64)
         causal = False
     else:  # ring-buffer slots with pos = -1 are ignored
         kpos[200:] = -1

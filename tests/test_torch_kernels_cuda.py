@@ -100,7 +100,7 @@ def _kv(B, T, G, K, dtype, device, seed):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("K", [64, 80, 120, 128])
+@pytest.mark.parametrize("K", [16, 64, 80, 120, 128])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("Hg", [1, 4, 8])
 @pytest.mark.parametrize("T", [1, 31, 32, 33, 100, 512, 1000])
@@ -134,7 +134,7 @@ def test_flash_decode_route_matches_plain(cuda_device, T, Hg, dtype, K):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("K", [80, 120, 128])
+@pytest.mark.parametrize("K", [16, 80, 120, 128])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("G", [8, 32])
 def test_flash_decode_route_window_ring_buffer(cuda_device, G, dtype, K):
@@ -155,7 +155,7 @@ def test_flash_decode_route_window_ring_buffer(cuda_device, G, dtype, K):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("K", [64, 80, 120, 128])
+@pytest.mark.parametrize("K", [16, 64, 80, 120, 128])
 @pytest.mark.parametrize("case", ["causal", "chunked", "window", "gqa", "empty_slots", "wide"])
 @pytest.mark.parametrize("Sq", [2, 17, 63, 65, 200])
 def test_flash_mma_prefill_route_matches_plain(cuda_device, Sq, case, K):
@@ -578,7 +578,7 @@ _ROUTE_ARGS = {  # route: (dtype, Sq)
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("K", [64, 80, 120, 128])
+@pytest.mark.parametrize("K", [16, 64, 80, 120, 128])
 @pytest.mark.parametrize("mask", ["causal", "non_causal", "window", "window_non_causal"])
 @pytest.mark.parametrize("route", list(_ROUTE_ARGS))
 def test_flash_head_dims_masks_every_route(cuda_device, route, mask, K):

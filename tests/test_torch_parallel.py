@@ -4,7 +4,8 @@ JAX package.  The ranks run in subprocesses (tests/_torch_parallel_worker.py),
 so no process group outlives a test.
 
 * On a (data 2, model 2) mesh, reduced deepseek-7b (``sp``), mamba2-370m
-  (``mamba_heads``) and qwen3-moe-30b-a3b (``moe_ep``, and ``moe_a2a``):
+  (``mamba_heads``), qwen3-moe-30b-a3b (``moe_ep``, and ``moe_a2a``) and
+  jamba-1.5-large-398b (attention, Mamba and the placed MoE):
   prefill logits, loss and every grad leaf of the sharded run equal the
   single-process port's within 1e-5 of each tensor's largest magnitude
   (fp32; the sums run in another order).  Under ``moe_a2a`` the aux loss
@@ -102,15 +103,13 @@ def test_sharded_run_equals_single_process(runs, case):
                 continue
             _close(got[f"{tag}/{k}"], v.detach().numpy(), f"{case} {tag} {k}")
         assert len(want) == 3 + len(leaves_with_paths(params))
-        # under mamba_heads every scan (prefill, loss, remat) takes its heads split
-        # over `model`, its batch over `data`; else nothing splits the heads
+        # every scan (prefill, loss, remat) takes its heads split over `model`
+        # (the Mamba block places x on head boundaries, with or without
+        # mamba_heads), its batch over `data`
         scans = set(got[f"{tag}/scan_x"].tolist())
-        if cfg.family == "ssm":
-            split = "(Shard(dim=0), Shard(dim=2))" if "mamba_heads" in flags \
-                else "(Shard(dim=0), Replicate())"
-            assert len(got[f"{tag}/scan_x"]) == 3 * cfg.n_layers and scans == {split}, scans
-        else:
-            assert not scans, scans
+        n_mamba = cfg.n_scan_blocks * sum(m == "mamba" for m, _ in cfg.layer_kinds())
+        assert len(got[f"{tag}/scan_x"]) == 3 * n_mamba, scans
+        assert scans == ({"(Shard(dim=0), Shard(dim=2))"} if n_mamba else set()), scans
 
 
 @pytest.mark.parametrize("case", list(DECODE))
