@@ -56,18 +56,31 @@ Phases (any failure exits non-zero):
                 on the card against the CPU (the same experts and the same
                 dropped pairs, some dropped), a profiled decode step (the
                 expert products against their byte bound) and the
-                calibrated curve.
+                calibrated curve.  Then the same on full-width, 48-layer
+                moonshot-v1-16b-a3b (28.06 G parameters, 64 experts, top-6,
+                16 query heads on 16 KV heads; 97 RMSNorm and 48 attention
+                kernels a pass), serving 4 requests, without the curve.
+                The MoE consistency check counts the routing choices that
+                differ between the two paths (bf16 near-ties), and holds
+                the bound again with the split path's routing pinned to
+                the full prefill's.
   9. train    — main path 3: deepseek-7b at full width, depth cut to 8
                 layers (fp32 AdamW moments for 30 would not fit), bf16,
                 3 steps of make_train_step at batch 4 x seq 512; every step
                 launches 33 RMSNorm and 16 attention kernels (forward and
                 the remat recompute), all on mma_prefill; a profiled step.
-                Main path 4: mamba2-370m at full width and depth through
-                train_loop, 4 steps at batch 8 x seq 512; every step 193
-                RMSNorm and 96 SSD scans, all on mma.  Finite losses and
-                grad norms, the step-0 loss near its expected value; small
-                models trained on the card against the CPU; a failed and
-                resumed train_loop against a straight run.
+                Then qwen3-moe-30b-a3b the same way at 4 of 48 layers: 33
+                RMSNorm (four norms a layer) and 8 attention kernels a
+                step, each step's dropped pairs and aux logged, the peak
+                against its reckoning.  Main path 4: mamba2-370m at full
+                width and depth through train_loop, 4 steps at batch 8 x
+                seq 512; every step 193 RMSNorm and 96 SSD scans, all on
+                mma.  Finite losses and grad norms, the step-0
+                cross-entropy near its expected value; small models
+                (reduced deepseek-7b, mamba2-370m and the two MoE configs,
+                whose routing must be the same on both) trained on the card
+                against the CPU; a failed and resumed train_loop against a
+                straight run.
  10. families — main path 6: full-width, 32-layer llava-next-mistral-7b
                 in bf16: a prefill of 2 rows of 1,152 image embeddings and
                 200 text tokens (1,352 rows each), 16 decode steps; the
@@ -86,6 +99,16 @@ Phases (any failure exits non-zero):
                 reduced config (head_dim 16) in fp32: prefill and decode
                 on the card against the CPU (the same routing), then
                 ServeEngine, its tokens against the CPU engine's.
+ 10b. dense  — main path 1 on the dense giants: full-width qwen3-32b (64
+                layers, d_model 5120, qk-norm, 64 query heads on 8 KV heads;
+                65.5 GB in bf16) and granite-34b (88 layers, d_model 6144,
+                48 query heads on one KV head, the non-gated GeLU MLP; 67.9
+                GB), each freed before the next; ServeEngine(max_len=512,
+                batch_size=4) serves 4 requests of 16 new tokens, every pass
+                launching 257 and 177 RMSNorm and 64 and 88 attention
+                kernels (mma_prefill, decode); prefill/decode consistency,
+                a profiled decode step, and the reduced config (head_dim
+                16, fp32) on the card against the CPU.
  11. parallel — the dry run (repro_torch.launch.dryrun) of one shape per
                 arch, and of the two MoE prefills, on a fake 16x16 mesh (256
                 ranks), a line per cell: fits_h100 (which every cell must),
@@ -239,8 +262,10 @@ def rmsnorm_cases(torch, ops, ref, timer, dev):
         # 300-token prefill (300 x 32); its d_model 2048 is mamba2-370m's d_inner
         ("bfloat16", 128, 128), ("bfloat16", 9600, 128),
         # the general kernel's widths: hubert-xlarge's prefill and train step
-        # (8 x 500 frames of 1280), h2o-danube-3-4b's 8192-token prefill (3840)
+        # (8 x 500 frames of 1280), h2o-danube-3-4b's 8192-token prefill (3840),
+        # qwen3-32b's d_model 5120 and granite-34b's 6144 at 4 x 512 tokens
         ("bfloat16", 4000, 1280), ("bfloat16", 8192, 3840),
+        ("bfloat16", 2048, 5120), ("bfloat16", 2048, 6144),
     ]
     for dtype, rows, D in cases:
         tdt = getattr(torch, dtype)
@@ -353,6 +378,10 @@ def flash_cases(torch, ops, ref, timer, dev):
         # granite-34b's MQA: 48 query heads on one KV head
         ("mqa_decode", 4, 1, 512, 48, 1, 128, "bfloat16", None, serve_q, serve_kv, True),
         ("mqa_prefill", 1, 200, 200, 48, 1, 128, "bfloat16", None, None, None, True),
+        # granite-34b's prefill at 4 x 512 tokens, and moonshot-v1-16b-a3b's
+        # decode (16 query heads on 16 KV heads: one query head a group)
+        ("mqa_prefill", 4, 512, 512, 48, 1, 128, "bfloat16", None, None, None, True),
+        ("decode_moonshot", 4, 1, 512, 16, 16, 128, "bfloat16", None, serve_q, serve_kv, True),
         # deepseek-7b and qwen3-moe-30b-a3b x decode_32k at batch 2 (phase 11)
         ("decode_32k", 2, 1, 32768, 32, 32, 128, "bfloat16", None, last_q, full_kv, True),
         ("decode_32k_moe", 2, 1, 32768, 32, 4, 128, "bfloat16", None, last_q, full_kv, True),
@@ -537,78 +566,86 @@ def serve(torch, np, cfg, params, ops, lengths, per_pass, routes):
         finite.append(arr.shape[-1] == cfg.padded_vocab and bool(np.isfinite(arr).all()))
         return arr
 
-    engine._logits_to_host = checked
-    engine.generate([Request(99, [1, 2, 3, 4, 5, 6, 7, 8], max_new_tokens=2)])  # warm-up
-
-    passes = []  # (kind, launches of that pass, its launches by route)
     model = engine.model
+    try:
+        engine._logits_to_host = checked
+        engine.generate([Request(99, [1, 2, 3, 4, 5, 6, 7, 8], max_new_tokens=2)])  # warm-up
 
-    def snapshot():
-        return dict(ops.LAUNCHES), {k: dict(v) for k, v in by_route.items()}
+        passes = []  # (kind, launches of that pass, its launches by route)
 
-    def counted(kind, fn):
-        def call(*args, **kwargs):
-            before, before_r = snapshot()
-            out = fn(*args, **kwargs)
-            after, after_r = snapshot()
-            passes.append((kind, {k: after[k] - before[k] for k in before},
-                           {k: {r: after_r[k][r] - before_r[k][r] for r in after_r[k]}
-                            for k in after_r}))
-            return out
-        return call
+        def snapshot():
+            return dict(ops.LAUNCHES), {k: dict(v) for k, v in by_route.items()}
 
-    model.prefill = counted("prefill", model.prefill)
-    model.decode_step = counted("decode", model.decode_step)
+        def counted(kind, fn):
+            def call(*args, **kwargs):
+                before, before_r = snapshot()
+                out = fn(*args, **kwargs)
+                after, after_r = snapshot()
+                passes.append((kind, {k: after[k] - before[k] for k in before},
+                               {k: {r: after_r[k][r] - before_r[k][r] for r in after_r[k]}
+                                for k in after_r}))
+                return out
+            return call
 
-    rng = np.random.default_rng(0)
-    reqs = [
-        Request(i, rng.integers(0, cfg.vocab_size, n).tolist(), max_new_tokens=16)
-        for i, n in enumerate(lengths)
-    ]
-    ops.reset_launches()
-    torch.cuda.reset_peak_memory_stats()
-    t0 = time.perf_counter()
-    engine.generate(reqs)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    launches = dict(ops.LAUNCHES)
-    route_counts = {k: dict(v) for k, v in by_route.items()}
-    run_counts = _launch_counts(ops)
+        model.prefill = counted("prefill", model.prefill)
+        model.decode_step = counted("decode", model.decode_step)
 
-    n_prefill = len(engine.call_seconds["prefill"])
-    n_decode = len(engine.call_seconds["decode"])
-    assert all(r.done and len(r.generated) == 16 for r in reqs), "a request did not finish"
-    assert all(finite), "non-finite logits"
-    assert len(passes) == n_prefill + n_decode, (len(passes), n_prefill, n_decode)
-    for kind, counts, pass_routes in passes:
-        want = {k: v[0 if kind == "prefill" else 1] for k, v in per_pass.items()}
-        assert counts == want, (kind, counts, want)
-        for kernel, got in pass_routes.items():
-            want_routes = {r: 0 for r in got}
-            if kernel in routes:
-                want_routes[routes[kernel][kind]] = want[kernel]
-            assert got == want_routes, (kind, kernel, got, want_routes)
-    pre = sorted(engine.call_seconds["prefill"])
-    dec = sorted(engine.call_seconds["decode"])
-    n_tok = sum(len(r.generated) for r in reqs)
-    log(f"serve {cfg.name}: {len(reqs)} requests, prompts {lengths}, {n_tok} tokens in "
-        f"{wall:.4f} s = {n_tok / wall:.2f} tokens/s; {n_prefill} prefills + {n_decode} decode steps")
-    log(f"serve {cfg.name}: prefill ms median {pre[len(pre) // 2] * 1e3:.3f} "
-        f"(min {pre[0] * 1e3:.3f}, max {pre[-1] * 1e3:.3f}); decode-step ms median "
-        f"{dec[len(dec) // 2] * 1e3:.3f} (min {dec[0] * 1e3:.3f}, max {dec[-1] * 1e3:.3f}); "
-        f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-    log(f"serve {cfg.name}: launches {launches} over {n_prefill} prefills + {n_decode} decode "
-        f"steps; per pass (prefill, decode) {per_pass}; by route {route_counts}")
-    return run_counts
+        rng = np.random.default_rng(0)
+        reqs = [
+            Request(i, rng.integers(0, cfg.vocab_size, n).tolist(), max_new_tokens=16)
+            for i, n in enumerate(lengths)
+        ]
+        ops.reset_launches()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        engine.generate(reqs)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = dict(ops.LAUNCHES)
+        route_counts = {k: dict(v) for k, v in by_route.items()}
+        run_counts = _launch_counts(ops)
+
+        n_prefill = len(engine.call_seconds["prefill"])
+        n_decode = len(engine.call_seconds["decode"])
+        assert all(r.done and len(r.generated) == 16 for r in reqs), "a request did not finish"
+        assert all(finite), "non-finite logits"
+        assert len(passes) == n_prefill + n_decode, (len(passes), n_prefill, n_decode)
+        for kind, counts, pass_routes in passes:
+            want = {k: v[0 if kind == "prefill" else 1] for k, v in per_pass.items()}
+            assert counts == want, (kind, counts, want)
+            for kernel, got in pass_routes.items():
+                want_routes = {r: 0 for r in got}
+                if kernel in routes:
+                    want_routes[routes[kernel][kind]] = want[kernel]
+                assert got == want_routes, (kind, kernel, got, want_routes)
+        pre = sorted(engine.call_seconds["prefill"])
+        dec = sorted(engine.call_seconds["decode"])
+        n_tok = sum(len(r.generated) for r in reqs)
+        log(f"serve {cfg.name}: {len(reqs)} requests, prompts {lengths}, {n_tok} tokens in "
+            f"{wall:.4f} s = {n_tok / wall:.2f} tokens/s; {n_prefill} prefills + {n_decode} decode steps")
+        log(f"serve {cfg.name}: prefill ms median {pre[len(pre) // 2] * 1e3:.3f} "
+            f"(min {pre[0] * 1e3:.3f}, max {pre[-1] * 1e3:.3f}); decode-step ms median "
+            f"{dec[len(dec) // 2] * 1e3:.3f} (min {dec[0] * 1e3:.3f}, max {dec[-1] * 1e3:.3f}); "
+            f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+        log(f"serve {cfg.name}: launches {launches} over {n_prefill} prefills + {n_decode} decode "
+            f"steps; per pass (prefill, decode) {per_pass}; by route {route_counts}")
+        return run_counts
+    finally:  # the wrappers point back at engine and model: unwrap, so
+        # nothing holds the weights once the caller drops them
+        for obj, name in ((engine, "_logits_to_host"), (model, "prefill"),
+                          (model, "decode_step")):
+            vars(obj).pop(name, None)
 
 
 def rel_err(a, b) -> float:
     return float((a.float() - b.float()).norm() / b.float().norm())
 
 
-def prefill_decode_consistency(torch, np, cfg, params):
+def prefill_decode_consistency(torch, np, cfg, params, on_call=lambda kind, row: None):
     """prefill(p[:n+1]) against prefill(p[:n]) + decode_step(p[n], pos=n),
-    two rows at different depths decoded in one batch with per-row pos."""
+    two rows at different depths decoded in one batch with per-row pos.
+    ``on_call(kind, row)`` is called before each model call: ("full", row),
+    ("split", row), then ("decode", None).  Returns the two rows' errors."""
     from repro_torch.models import Model
     from repro_torch.serve.engine import ServeEngine
 
@@ -621,34 +658,156 @@ def prefill_decode_consistency(torch, np, cfg, params):
     model = Model(cfg)
     dev = model.device
     rng = np.random.default_rng(1)
-    ns = [37, 120]
+    ns = CONSISTENCY_PROMPTS
     prompts = [rng.integers(0, cfg.vocab_size, n + 1).tolist() for n in ns]
     cache = model.init_cache(2, 512)
     full = []
     for row, (p, n) in enumerate(zip(prompts, ns)):
         tok = torch.tensor([p], dtype=torch.int32, device=dev)
+        on_call("full", row)
         full.append(model.prefill(params, {"tokens": tok})[0][0, 0])
+        on_call("split", row)
         _, rc = model.prefill(params, {"tokens": tok[:, :n]}, model.init_cache(1, 512))
         ServeEngine.insert_row(cache, rc, row)
     last = torch.tensor([[p[n]] for p, n in zip(prompts, ns)], dtype=torch.int32, device=dev)
+    on_call("decode", None)
     dec, _ = model.decode_step(params, cache, last, torch.tensor(ns, dtype=torch.int32, device=dev))
     errs = [rel_err(dec[i, 0], full[i]) for i in range(2)]
     control = rel_err(dec[1, 0], full[0])  # another row's context: what a fault looks like
-    log(f"consistency: rel L2 err of decode vs prefill logits {errs} (tol {tol}); "
+    log(f"consistency {cfg.name}: rel L2 err of decode vs prefill logits {errs} (tol {tol}); "
         f"control (row 1's decode vs row 0's prefill) {control:.4f}")
     assert all(torch.isfinite(d).all() for d in full) and bool(torch.isfinite(dec).all())
+    return errs, tol
+
+
+CONSISTENCY_PROMPTS = [37, 120]  # the split prefills' lengths; one more token decoded
+
+
+def dense_consistency(torch, np, cfg, params):
+    errs, tol = prefill_decode_consistency(torch, np, cfg, params)
     assert max(errs) <= tol, errs
 
 
-def small_model_against_cpu(torch, np, ops):
-    """Reduced deepseek-7b (its own head_dim 16, fp32) on the card through
+class PinnedRouting:
+    """While installed and while ``pins`` holds choices, makes each MoE
+    routing call (``moe._scores``) choose the next pinned experts: top-k
+    taken from the call's own scores at those experts, renormalised as the
+    router does."""
+
+    def __init__(self):
+        from repro_torch.models import moe
+
+        self.moe, self.pins = moe, []
+
+    def __enter__(self):
+        self.scores = scores = self.moe._scores
+
+        def pinned(router, cfg, xt):
+            probs, top_p, top_i = scores(router, cfg, xt)
+            if self.pins:
+                top_i = self.pins.pop(0)
+                top_p = probs.gather(1, top_i)
+                top_p = top_p / top_p.sum(-1, keepdim=True).clamp(min=1e-9)
+            return probs, top_p, top_i
+
+        self.moe._scores = pinned
+        return self
+
+    def __exit__(self, *exc):
+        self.moe._scores = self.scores
+
+
+# bf16 keeps 8 significant bits, so the full prefill and the split path's
+# hidden states differ by parts in 2^8, and so do their router scores (on
+# the H100 moonshot-v1-16b-a3b's differ by up to 1.2 % at layer 1).  Where
+# a token's dropped and swapped-in experts lie within NEAR_TIE of each
+# other (relative to the dropped one's full-prefill score), rounding may
+# break the tie; a routing fault swaps experts whatever their scores.
+NEAR_TIE = 2**-6
+FLIP_SHARE = 0.01  # at most this share of the routing choices may differ
+FLIP_TOL = 0.2  # an unpinned row with near-tie flips; a wrong context reads ~1.5
+
+
+def moe_consistency(torch, np, cfg, params, near_tie_flips=False):
+    """prefill_decode_consistency with capacity raised (no pair drops), run
+    twice.  First as it is, every routing call recorded: bf16 rounds the
+    full prefill and the split path apart, so a token near a tie between
+    two experts may choose another in one of them.  These flips are
+    counted (at most FLIP_SHARE of the choices) and the first few logged
+    with their layer, token and both paths' scores.  Then with every
+    routing call of the split path pinned to the experts the full prefill
+    chose for the same token: with the routing equal, what is left to
+    differ is the cache, the positions and the masks, and this run must
+    hold the bound.  The first run must hold it too, except, where
+    ``near_tie_flips``, a row whose flips at the first layer where it has
+    any are all near-ties (NEAR_TIE): such a row is held to FLIP_TOL."""
+    import dataclasses
+
+    cfg = dataclasses.replace(cfg, capacity_factor=float(cfg.n_experts))  # C >= T K
+    L, ns = cfg.n_layers, CONSISTENCY_PROMPTS
+    with RouteLog() as rl:
+        plain, tol = prefill_decode_consistency(torch, np, cfg, params)
+    calls = [rl.records[i : i + L] for i in range(0, len(rl.records), L)]  # a model call each
+    full, split, dec = calls[0::2][:2], calls[1::2][:2], calls[4]
+    chosen = []  # (layer, row, token, full's (probs, top_i), the other path's)
+    for row, n in enumerate(ns):
+        for layer in range(L):
+            f, o, d = full[row][layer], split[row][layer], dec[layer]
+            chosen += [(layer, row, t, (f.probs[t], f.top_i[t]), (o.probs[t], o.top_i[t]))
+                       for t in range(n)]
+            chosen.append((layer, row, n, (f.probs[n], f.top_i[n]), (d.probs[row], d.top_i[row])))
+    flips = [c for c in chosen if not torch.equal(c[3][1].sort().values, c[4][1].sort().values)]
+    log(f"consistency {cfg.name}: {len(flips)} of {len(chosen)} (layer, token) routing choices "
+        f"differ between the full prefill and prefill + decode")
+    for layer, row, t, (fp, fi), (op, oi) in flips[:3]:
+        top = torch.topk(fp, cfg.top_k + 1).indices
+        log(f"consistency {cfg.name}: flip at layer {layer}, row {row}, token {t}: experts "
+            f"{sorted(fi.tolist())} (full prefill) against {sorted(oi.tolist())}; scores at "
+            f"{top.tolist()}: {[round(float(x), 7) for x in fp[top]]} against "
+            f"{[round(float(x), 7) for x in op[top]]}")
+
+    def pin(kind, row):
+        if kind == "split":
+            pr.pins = [full[row][layer].top_i[: ns[row]] for layer in range(L)]
+        elif kind == "decode":
+            pr.pins = [torch.stack([full[r][layer].top_i[n] for r, n in enumerate(ns)])
+                       for layer in range(L)]
+
+    with PinnedRouting() as pr:
+        pinned, _ = prefill_decode_consistency(torch, np, cfg, params, on_call=pin)
+    log(f"consistency {cfg.name}: routing pinned to the full prefill's choices: rel L2 err "
+        f"{pinned} (tol {tol}); as it is {plain}, with {len(flips)} flips")
+    assert max(pinned) <= tol, pinned
+    assert len(flips) <= FLIP_SHARE * len(chosen), (len(flips), len(chosen))
+    for row, err in enumerate(plain):
+        if err <= tol:
+            continue
+        assert near_tie_flips, (row, plain)
+        mine = [c for c in flips if c[1] == row]
+        assert mine, f"row {row}: error {err} above {tol} with no routing flip"
+        first = [c for c in mine if c[0] == min(m[0] for m in mine)]
+        for layer, _, t, (fp, fi), (_, oi) in first:
+            dropped = sorted(set(fi.tolist()) - set(oi.tolist()))
+            swapped = sorted(set(oi.tolist()) - set(fi.tolist()))
+            top = float(fp[dropped].max())
+            gap = (top - float(fp[swapped].min())) / top
+            log(f"consistency {cfg.name}: row {row}'s first flip, layer {layer}, token {t}: "
+                f"experts {dropped} dropped for {swapped}, full-prefill scores "
+                f"{[float(fp[e]) for e in dropped]} against {[float(fp[e]) for e in swapped]}, "
+                f"relative gap {gap:.5f} (near tie below {NEAR_TIE})")
+            assert gap < NEAR_TIE, (row, layer, t, gap)
+        assert err <= FLIP_TOL, (row, err, FLIP_TOL)
+
+
+def small_model_against_cpu(torch, np, ops, arch="deepseek-7b"):
+    """Reduced ``arch`` (its own head_dim 16, fp32) on the card through
     the kernels against the same weights on the CPU through the plain
     versions."""
     from repro_torch.configs import reduced_config
     from repro_torch.models import Model
 
     tol = 1e-4
-    cfg = reduced_config("deepseek-7b")
+    cfg = reduced_config(arch)
     cpu, gpu = Model(cfg, device="cpu"), Model(cfg)
     p_cpu = cpu.init(torch.Generator().manual_seed(3))
     p_gpu = _tree_to(p_cpu, gpu.device)
@@ -931,6 +1090,28 @@ class RouteLog:
         self.moe.route = self.route
 
 
+def same_routing(torch, step, got, want):
+    """Whether two runs' routing calls (``RouteLog.records``, the card's
+    and the CPU's) chose the same experts and dropped the same pairs; the
+    first call that differs is logged, with ``step`` (a train step, or
+    "serve"), its first differing token and that token's router scores on
+    both."""
+    if len(got) != len(want):
+        log(f"routing: step {step}: {len(got)} routing calls against {len(want)}")
+        return False
+    for i, (a, b) in enumerate(zip(got, want)):
+        ti, keep = a.top_i.cpu(), a.keep.cpu()
+        if a.capacity == b.capacity and torch.equal(ti, b.top_i) and torch.equal(keep, b.keep):
+            continue
+        tok = int(((ti != b.top_i).any(-1) | (keep != b.keep).any(-1)).nonzero()[0])
+        log(f"routing: step {step} call {i} differs first at token {tok}: experts "
+            f"{ti[tok].tolist()} kept {keep[tok].tolist()} (card) against {b.top_i[tok].tolist()} "
+            f"kept {b.keep[tok].tolist()} (cpu); scores {a.probs[tok].cpu().tolist()} against "
+            f"{b.probs[tok].tolist()}")
+        return False
+    return True
+
+
 def moe_weight_bytes(cfg, params, batch: int):
     """(bytes of the expert weights, bytes of all weights a decode step of
     ``batch`` rows reads: every leaf once, but of the token table only the
@@ -955,7 +1136,8 @@ def serve_moe(torch, np, cfg, params, ops, lengths):
     with RouteLog() as rl:
         counts = serve(
             torch, np, cfg, params, ops, lengths=lengths,
-            per_pass={"rmsnorm": (4 * n + 1,) * 2, "flash_attention": (n, n), "ssd_scan": (0, 0)},
+            per_pass={"rmsnorm": (norms_a_layer(cfg) * n + 1,) * 2, "flash_attention": (n, n),
+                      "ssd_scan": (0, 0)},
             routes={"flash_attention": {"prefill": "mma_prefill", "decode": "decode"}},
         )
     # one pass is n routing calls of T tokens each
@@ -982,20 +1164,20 @@ def serve_moe(torch, np, cfg, params, ops, lengths):
     return counts
 
 
-def small_moe_against_cpu(torch, np, ops):
-    """Reduced qwen3-moe-30b-a3b (head_dim 16, fp32) on the card through
-    the kernels against the same weights on the CPU through the plain
-    versions: a prefill of 3 x 12 tokens and 4 decode steps at per-row
-    positions, at capacity_factor 0.5, where the prefill drops pairs.  The
-    logits within 1e-4, and every routing call picks the same experts and
-    drops the same pairs on both."""
+def small_moe_against_cpu(torch, np, ops, arch):
+    """Reduced ``arch`` (head_dim 16, fp32) on the card through the kernels
+    against the same weights on the CPU through the plain versions: a
+    prefill of 3 x 12 tokens and 4 decode steps at per-row positions, at
+    capacity_factor 0.5, where the prefill drops pairs.  The logits within
+    1e-4, and every routing call picks the same experts and drops the same
+    pairs on both."""
     import dataclasses
 
     from repro_torch.configs import reduced_config
     from repro_torch.models import Model
 
     tol = 1e-4
-    cfg = dataclasses.replace(reduced_config("qwen3-moe-30b-a3b"), capacity_factor=0.5)
+    cfg = dataclasses.replace(reduced_config(arch), capacity_factor=0.5)
     cpu, gpu = Model(cfg, device="cpu"), Model(cfg)
     p_cpu = cpu.init(torch.Generator().manual_seed(12))
     p_gpu = _tree_to(p_cpu, gpu.device)
@@ -1011,48 +1193,70 @@ def small_moe_against_cpu(torch, np, ops):
             for i in range(4):
                 pos = torch.tensor([12 + i, 13 + i, 14 + i], dtype=torch.int32, device=dev)
                 outs.append(model.decode_step(params, cache, toks[:, 12 + i : 13 + i].to(dev), pos)[0].cpu())
-        return outs, [(r.capacity, r.top_i.cpu(), r.keep.cpu()) for r in rl.records]
+        return outs, rl.records
 
     n0 = _launch_counts(ops)
     out_gpu, r_gpu = run(gpu, p_gpu)
     launches = {k: v for k, v in _diff(_launch_counts(ops), n0).items() if v}
     out_cpu, r_cpu = run(cpu, p_cpu)
     worst = max((a - b).abs().max().item() for a, b in zip(out_gpu, out_cpu))
-    same = len(r_gpu) == len(r_cpu) == 5 * cfg.n_layers and all(
-        a[0] == b[0] and torch.equal(a[1], b[1]) and torch.equal(a[2], b[2])
-        for a, b in zip(r_gpu, r_cpu))
-    dropped = sum(int((~keep).sum()) for *_, keep in r_gpu)
-    log(f"small moe model: cuda kernels vs cpu plain path, prefill 3 x 12 + 4 decode steps, "
-        f"capacity_factor 0.5: max abs logit err {worst:.3e} (tol {tol}); the same experts and "
-        f"dropped pairs in all {len(r_gpu)} routing calls: {same}; {dropped} pairs dropped "
-        f"(prefill capacity {r_gpu[0][0]}); launches {launches}")
+    same = len(r_cpu) == 5 * cfg.n_layers and same_routing(torch, "serve", r_gpu, r_cpu)
+    dropped = sum(int((~r.keep).sum()) for r in r_gpu)
+    log(f"small moe model: reduced {arch}, cuda kernels vs cpu plain path, prefill 3 x 12 + 4 "
+        f"decode steps, capacity_factor 0.5: max abs logit err {worst:.3e} (tol {tol}); the same "
+        f"experts and dropped pairs in all {len(r_gpu)} routing calls: {same}; {dropped} pairs "
+        f"dropped (prefill capacity {r_gpu[0].capacity}); launches {launches}")
     L = cfg.n_layers
-    assert launches == {"rmsnorm": 5 * (4 * L + 1), "flash_attention": 5 * L,
+    assert launches == {"rmsnorm": 5 * (norms_a_layer(cfg) * L + 1), "flash_attention": 5 * L,
                         "flash/fma": L, "flash/fma K=16 causal": L,
                         "flash/decode": 4 * L, "flash/decode K=16 causal": 4 * L}, launches
     assert same and dropped > 0 and worst <= tol, (same, dropped, worst)
 
 
-def moe_phase(torch, np, ops, dev, card):
-    """Main path 5 and its checks.  Returns its launches and its calibrated
-    curve."""
-    import dataclasses
+SERVE_PROMPTS = [200, 5, 83, 161, 44, 122]  # the serve runs' prompt lengths
+# the paths added last (moonshot-v1-16b-a3b, qwen3-32b, granite-34b) serve one
+# batch of 4 and profile 2 decode steps, to keep the whole run near 560 s
+NEW_PATH_PROMPTS = SERVE_PROMPTS[:4]
+NEW_PATH_PROFILED_STEPS = 2
 
+
+def moe_phase(torch, np, ops, dev, card):
+    """Main path 5 and its checks, on qwen3-moe-30b-a3b, then on
+    moonshot-v1-16b-a3b (the first's weights freed first).  Returns the
+    launches of each serve run and qwen3-moe-30b-a3b's calibrated curve."""
     from repro_torch.configs import get_config
     from repro_torch.models import Model
 
-    cfg = get_config("qwen3-moe-30b-a3b")
-    params = init_params(torch, Model, cfg, dev)
+    counts = {}
+    for arch in ("qwen3-moe-30b-a3b", "moonshot-v1-16b-a3b"):
+        first = arch == "qwen3-moe-30b-a3b"
+        cfg = get_config(arch)
+        params = init_params(torch, Model, cfg, dev)
+        log_kv_cache(cfg)
+        counts[arch] = serve_moe(torch, np, cfg, params, ops,
+                                 lengths=SERVE_PROMPTS if first else NEW_PATH_PROMPTS)
+        # moonshot-v1-16b-a3b's decode token breaks a near tie at layer 1
+        moe_consistency(torch, np, cfg, params, near_tie_flips=not first)
+        small_moe_against_cpu(torch, np, ops, arch)
+        profile_decode(torch, cfg, params, steps=5 if first else NEW_PATH_PROFILED_STEPS,
+                       bounds=moe_weight_bytes(cfg, params, 4))
+        if first:
+            curve = calibrate_phase(cfg, params, card)
+        del params
+        torch.cuda.empty_cache()
+    return counts, curve
+
+
+def norms_a_layer(cfg) -> int:
+    """RMSNorm launches a layer makes in a forward pass: ln1 and ln2, and
+    the q- and k-norms of a qk-norm config."""
+    return 4 if cfg.qk_norm else 2
+
+
+def log_kv_cache(cfg) -> None:
     kv = 2 * cfg.n_layers * cfg.n_kv_heads * cfg.head_dim * 2
     log(f"init {cfg.name}: KV cache {kv / 1024:.0f} KiB a token, "
         f"{4 * 512 * kv / 2**20:.0f} MiB at batch 4 x 512")
-    counts = serve_moe(torch, np, cfg, params, ops, lengths=[200, 5, 83, 161, 44, 122])
-    # C >= T K for every prompt: a prefill drops no pair, as decode never does
-    prefill_decode_consistency(
-        torch, np, dataclasses.replace(cfg, capacity_factor=float(cfg.n_experts)), params)
-    small_moe_against_cpu(torch, np, ops)
-    profile_decode(torch, cfg, params, bounds=moe_weight_bytes(cfg, params, 4))
-    return counts, calibrate_phase(cfg, params, card)
 
 
 # --------------------------------------------------------------------------
@@ -1105,28 +1309,30 @@ def timed_step(torch, ops, step_fn, state, batch, records):
     state, metrics = step_fn(state, batch)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    records.append(dict(wall=wall, loss=float(metrics["loss"]),
-                        grad_norm=float(metrics["grad_norm"]),
+    records.append(dict(wall=wall, loss=float(metrics["loss"]), xent=float(metrics["xent"]),
+                        aux=float(metrics["aux"]), grad_norm=float(metrics["grad_norm"]),
                         launches=_diff(_launch_counts(ops), before)))
     return state, metrics
 
 
 def check_train_records(cfg, records, per_step, tokens_per_step, label):
-    """Finite losses and grad norms, the step-0 loss near its expected
-    value, and the launches of every step as predicted."""
+    """Finite losses and grad norms, the step-0 cross-entropy (the loss
+    less a MoE model's 0.01 aux) near its expected value, and the
+    launches of every step as predicted."""
     import math
 
     want0 = expected_first_loss(cfg)
     ln_v = math.log(cfg.padded_vocab)
     for i, r in enumerate(records):
-        log(f"{label}: step {i} loss {r['loss']!r} grad_norm {r['grad_norm']!r} wall "
-            f"{r['wall'] * 1e3:.3f} ms = {tokens_per_step / r['wall']:.1f} tokens/s; launches "
+        log(f"{label}: step {i} loss {r['loss']!r} xent {r['xent']!r} aux {r['aux']!r} grad_norm "
+            f"{r['grad_norm']!r} wall {r['wall'] * 1e3:.3f} ms = "
+            f"{tokens_per_step / r['wall']:.1f} tokens/s; launches "
             f"{ {k: v for k, v in r['launches'].items() if v} }")
     assert all(math.isfinite(r["loss"]) and math.isfinite(r["grad_norm"]) for r in records), records
-    loss0 = records[0]["loss"]
-    log(f"{label}: step-0 loss {loss0!r}: ln(V) = {ln_v!r} (distance {loss0 - ln_v:+.4f}), expected "
-        f"ln(V) + s^2/2 = {want0!r} (distance {loss0 - want0:+.4f}, tol 0.5)")
-    assert abs(loss0 - want0) <= 0.5, (loss0, want0)
+    xent0 = records[0]["xent"]
+    log(f"{label}: step-0 cross-entropy {xent0!r}: ln(V) = {ln_v!r} (distance {xent0 - ln_v:+.4f}), "
+        f"expected ln(V) + s^2/2 = {want0!r} (distance {xent0 - want0:+.4f}, tol 0.5)")
+    assert abs(xent0 - want0) <= 0.5, (xent0, want0)
     for i, r in enumerate(records):
         got = {k: v for k, v in r["launches"].items() if v}
         assert got == per_step, (label, i, got, per_step)
@@ -1197,11 +1403,15 @@ def profile_train_step(torch, model, opt_cfg, step_fn, state, batch, label):
         f"adamw_update {(t2 - t1) * 1e3:.3f} ms (host clock, synchronised)")
 
 
-def train_deepseek(torch, ops, dev, steps: int = 3):
-    """Main path 3: deepseek-7b at full width, depth cut to 8 layers (the
-    reference's fp32 AdamW moments for all 30 would not fit in 80 GB),
+def train_cut(torch, ops, dev, arch, layers, steps: int = 3):
+    """Main path 3: ``arch`` at full width, depth cut to ``layers`` (the
+    reference's fp32 AdamW moments for every layer would not fit in 80 GB),
     bf16, batch 4 x seq 512 from DataLoader(seed=0), make_train_step on
-    init_train_state.  Returns its launches."""
+    init_train_state; each step's routing calls recorded (a MoE model's
+    dropped pairs a step).  The peak is logged against its reckoning:
+    the state, the bf16 grads, about five fp32 temporaries of the largest
+    leaf in the eager AdamW, and the logits' bf16, fp32 and grad copies.
+    Returns its launches."""
     import dataclasses
 
     from repro_torch.configs import get_config
@@ -1210,38 +1420,57 @@ def train_deepseek(torch, ops, dev, steps: int = 3):
     from repro_torch.train.data import DataLoader
     from repro_torch.train.optimizer import AdamWConfig
     from repro_torch.train.train_step import init_train_state, make_train_step
+    from repro_torch.tree import leaves
 
-    cfg = dataclasses.replace(get_config("deepseek-7b"), n_layers=8)
+    cfg = dataclasses.replace(get_config(arch), n_layers=layers)
+    label = f"train {arch}"
     model = Model(cfg)
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     state = init_train_state(model, torch.Generator(device=dev).manual_seed(0))
     torch.cuda.synchronize()
-    state_gib = torch.cuda.memory_allocated() / 2**30
-    log(f"train deepseek-7b: {cfg.n_layers} layers, {n_params(state.params)} params, state "
-        f"{state_gib:.2f} GiB (bf16 params, fp32 m and v), init {time.perf_counter() - t0:.1f} s")
+    state_gb = torch.cuda.memory_allocated() / 1e9
+    n_p = n_params(state.params)
+    log(f"{label}: {cfg.n_layers} layers, {n_p} params, state {state_gb:.2f} GB (bf16 params, "
+        f"fp32 m and v), init {time.perf_counter() - t0:.1f} s")
     opt_cfg = AdamWConfig(warmup_steps=1, total_steps=100)
     step_fn = make_train_step(model, opt_cfg)
-    loader = DataLoader(cfg, 4, 512, seed=0)
+    B, S = 4, 512
+    loader = DataLoader(cfg, B, S, seed=0)
     batches = [{k: torch.from_numpy(v).to(dev) for k, v in loader.next().items()}
                for _ in range(steps + 1)]
     L = cfg.n_layers
     records = []
     ops.reset_launches()
-    for batch in batches[:steps]:
-        state, _ = timed_step(torch, ops, step_fn, state, batch, records)
+    with RouteLog() as rl:
+        for batch in batches[:steps]:
+            n0 = len(rl.records)
+            state, _ = timed_step(torch, ops, step_fn, state, batch, records)
+            calls = rl.records[n0:]  # the forward's L calls, then the recompute's
+            if cfg.n_experts:
+                drops = [int((~r.keep).sum()) for r in calls]
+                log(f"{label}: step {len(records) - 1}: {len(calls)} routing calls of {B * S} "
+                    f"tokens, capacity {calls[0].capacity}; dropped (token, k) pairs by layer "
+                    f"{drops[:L]} of {B * S * cfg.top_k} a layer; aux {records[-1]['aux']!r}")
+                assert len(calls) == 2 * L and drops[:L] == drops[L:][::-1], drops
     counts = _launch_counts(ops)
     launches, flash_routes = dict(ops.LAUNCHES), dict(ops.FLASH_ROUTES)
-    peak = torch.cuda.max_memory_allocated() / 2**30
-    check_train_records(cfg, records, {"rmsnorm": 4 * L + 1, "flash_attention": 2 * L,
-                                       "flash/mma_prefill": 2 * L,
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    check_train_records(cfg, records, {"rmsnorm": 2 * norms_a_layer(cfg) * L + 1,
+                                       "flash_attention": 2 * L, "flash/mma_prefill": 2 * L,
                                        f"flash/mma_prefill K={cfg.head_dim} causal": 2 * L},
-                        4 * 512, "train deepseek-7b")
+                        B * S, label)
     walls = sorted(r["wall"] for r in records[1:])
-    log(f"train deepseek-7b: {steps} steps at batch 4 x seq 512; step wall after the first "
-        f"{[round(w * 1e3, 3) for w in walls]} ms, {4 * 512 / walls[0]:.1f} tokens/s at the best; "
-        f"peak memory {peak:.2f} GiB; launches {launches}, flash by route {flash_routes}")
-    profile_train_step(torch, model, opt_cfg, step_fn, state, batches[steps], "train deepseek-7b")
+    largest = max(p.numel() for p in leaves(state.params))
+    grads_gb, adamw_gb = 2 * n_p / 1e9, 5 * 4 * largest / 1e9
+    logits_gb = B * S * cfg.padded_vocab * (2 + 4 + 4) / 1e9
+    log(f"{label}: {steps} steps at batch {B} x seq {S}; step wall after the first "
+        f"{[round(w * 1e3, 3) for w in walls]} ms, {B * S / walls[0]:.1f} tokens/s at the best; "
+        f"peak memory {peak:.2f} GB against the reckoning {state_gb + grads_gb + adamw_gb + logits_gb:.2f}"
+        f" GB = state {state_gb:.2f} + bf16 grads {grads_gb:.2f} + AdamW's 5 fp32 temporaries of "
+        f"the largest leaf ({largest} elements) {adamw_gb:.2f} + logits {logits_gb:.2f}; "
+        f"launches {launches}, flash by route {flash_routes}")
+    profile_train_step(torch, model, opt_cfg, step_fn, state, batches[steps], label)
     return counts
 
 
@@ -1307,14 +1536,16 @@ def profile_mamba_step(torch, cfg):
 
 
 def small_train_against_cpu(torch, ops, steps: int = 3):
-    """Small float32 models (reduced deepseek-7b at its head_dim 16, reduced
-    mamba2-370m) trained on the card through the kernels and on the CPU
-    through the plain versions, from the same weights and batches.  Losses
-    within 1e-5 relative at every step.  Params: an Adam step is about
-    +-lr wherever the gradient is tiny, so an element whose gradient is
-    within float noise of 0 may step the other way on the other device;
-    none may differ by more than 2 sum(lr), and at most a 1e-3 share of a
-    leaf's elements by more than 1e-5."""
+    """Small float32 models (reduced deepseek-7b, qwen3-moe-30b-a3b and
+    moonshot-v1-16b-a3b at their head_dim 16, reduced mamba2-370m) trained
+    on the card through the kernels and on the CPU through the plain
+    versions, from the same weights and batches.  Losses within 1e-5
+    relative at every step, and every MoE routing call (forward and remat
+    recompute) the same experts and dropped pairs on both.  Params: an Adam
+    step is about +-lr wherever the gradient is tiny, so an element whose
+    gradient is within float noise of 0 may step the other way on the other
+    device; none may differ by more than 2 sum(lr), and at most a 1e-3
+    share of a leaf's elements by more than 1e-5."""
     import numpy as np
 
     from repro_torch.configs import reduced_config
@@ -1326,7 +1557,7 @@ def small_train_against_cpu(torch, ops, steps: int = 3):
 
     opt = AdamWConfig(lr_peak=1e-3, warmup_steps=2, total_steps=10)
     bound = 2 * sum(float(cosine_lr(opt, torch.tensor(s + 1))) for s in range(steps))
-    for arch in ("deepseek-7b", "mamba2-370m"):
+    for arch in ("deepseek-7b", "mamba2-370m", "qwen3-moe-30b-a3b", "moonshot-v1-16b-a3b"):
         cfg = reduced_config(arch)
         cpu, gpu = Model(cfg, device="cpu"), Model(cfg)
         s_cpu = init_train_state(cpu, torch.Generator().manual_seed(11))
@@ -1334,15 +1565,19 @@ def small_train_against_cpu(torch, ops, steps: int = 3):
         s_gpu = tree_map(lambda t: t.to(gpu.device, copy=True), s_cpu)
         f_cpu, f_gpu = make_train_step(cpu, opt), make_train_step(gpu, opt)
         loader = DataLoader(cfg, 4, 40, seed=0)
-        loss_err, launches = 0.0, {}
-        for _ in range(steps):
+        loss_err, launches, routed, dropped = 0.0, {}, True, 0
+        for step in range(steps):
             batch = {k: torch.from_numpy(v) for k, v in loader.next().items()}
-            s_cpu, m_cpu = f_cpu(s_cpu, batch)
+            with RouteLog() as r_cpu:
+                s_cpu, m_cpu = f_cpu(s_cpu, batch)
             before = _launch_counts(ops)
-            s_gpu, m_gpu = f_gpu(s_gpu, {k: v.to(gpu.device) for k, v in batch.items()})
+            with RouteLog() as r_gpu:
+                s_gpu, m_gpu = f_gpu(s_gpu, {k: v.to(gpu.device) for k, v in batch.items()})
             for k, v in _diff(_launch_counts(ops), before).items():
                 if v:
                     launches[k] = launches.get(k, 0) + v
+            routed = routed and same_routing(torch, step, r_gpu.records, r_cpu.records)
+            dropped += sum(int((~r.keep).sum()) for r in r_cpu.records)
             lc, lg = float(m_cpu["loss"]), float(m_gpu["loss"])
             loss_err = max(loss_err, abs(lg - lc) / abs(lc))
         want = dict(leaves_with_paths(s_cpu.params))
@@ -1352,13 +1587,16 @@ def small_train_against_cpu(torch, ops, steps: int = 3):
             worst, share = max(worst, float(err.max())), max(share, float(np.mean(err > 1e-5)))
         log(f"small train {arch}: {steps} steps, card kernels vs cpu plain path: worst loss rel err "
             f"{loss_err:.3e} (tol 1e-5); params worst abs err {worst:.3e} (bound {bound:.3e}), "
-            f"largest share of a leaf off by > 1e-5 {share:.2e} (tol 1e-3); launches {launches}")
+            f"largest share of a leaf off by > 1e-5 {share:.2e} (tol 1e-3); launches {launches}"
+            + (f"; the same experts and dropped pairs in every routing call: {routed} ({dropped} "
+               f"pairs dropped over {steps} steps)" if cfg.n_experts else ""))
         L = cfg.n_layers
-        mixer = {"deepseek-7b": ("flash_attention", "flash/fma", "flash/fma K=16 causal"),
-                 "mamba2-370m": ("ssd_scan", "ssd/fma")}
-        assert launches == {"rmsnorm": steps * (4 * L + 1),
-                            **{k: steps * 2 * L for k in mixer[arch]}}, launches
-        assert loss_err <= 1e-5 and worst <= bound and share <= 1e-3, (loss_err, worst, share)
+        mixer = (("ssd_scan", "ssd/fma") if arch == "mamba2-370m"
+                 else ("flash_attention", "flash/fma", "flash/fma K=16 causal"))
+        assert launches == {"rmsnorm": steps * (2 * norms_a_layer(cfg) * L + 1),
+                            **{k: steps * 2 * L for k in mixer}}, launches
+        assert routed and loss_err <= 1e-5 and worst <= bound and share <= 1e-3, \
+            (routed, loss_err, worst, share)
 
 
 def resume_on_card(torch):
@@ -1696,6 +1934,43 @@ def hybrid_phase(torch, np, ops):
         f"8 new tokens each (greedy and sampled): {tokens[0]}; the same as on the cpu: "
         f"{tokens[0] == tokens[1]}")
     assert tokens[0] == tokens[1], tokens
+    return counts
+
+
+# --------------------------------------------------------------------------
+# phase 10b: the two dense giants
+# --------------------------------------------------------------------------
+
+
+def dense_giants_phase(torch, np, ops, dev):
+    """Main path 1 on qwen3-32b (qk-norm, 64 query heads on 8 KV heads) and
+    granite-34b (48 query heads on one KV head, the non-gated GeLU MLP) at
+    full width and depth in bf16, each freed before the next: ServeEngine
+    serves 4 requests of 16 new tokens, every pass launching norms a layer
+    x n + 1 RMSNorm and n flash kernels (prefill mma_prefill, decode
+    decode); prefill/decode consistency, a profiled decode step, and the
+    reduced config (head_dim 16, fp32) on the card against the CPU.
+    Returns each serve run's launches."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import Model
+
+    counts = {}
+    for arch in ("qwen3-32b", "granite-34b"):
+        cfg = get_config(arch)
+        params = init_params(torch, Model, cfg, dev)
+        log_kv_cache(cfg)
+        n = cfg.n_layers
+        counts[arch] = serve(
+            torch, np, cfg, params, ops, lengths=NEW_PATH_PROMPTS,
+            per_pass={"rmsnorm": (norms_a_layer(cfg) * n + 1,) * 2, "flash_attention": (n, n),
+                      "ssd_scan": (0, 0)},
+            routes={"flash_attention": {"prefill": "mma_prefill", "decode": "decode"}},
+        )
+        dense_consistency(torch, np, cfg, params)
+        profile_decode(torch, cfg, params, steps=NEW_PATH_PROFILED_STEPS)
+        del params
+        torch.cuda.empty_cache()
+        small_model_against_cpu(torch, np, ops, arch)
     return counts
 
 
@@ -2293,21 +2568,30 @@ def main(argv=None) -> int:
         log(f"only {args.only} from {args.src}: done in {time.perf_counter() - t_start:.1f} s")
         return 0
 
+    laps = [t_start]
+
+    def lap(phase):  # the wall time of the phase that just ended
+        laps.append(time.perf_counter())
+        log(f"phase {phase}: {laps[-1] - laps[-2]:.1f} s")
+
+    lap("1-3")
     # 4. serve deepseek-7b at full width (main path 1)
     cfg = get_config("deepseek-7b")
     params = init_params(torch, Model, cfg, dev)
     n = cfg.n_layers
     path_launches = {}  # the launches (_launch_counts) of each main path's run
     path_launches[cfg.name] = serve(
-        torch, np, cfg, params, ops, lengths=[200, 5, 83, 161, 44, 122],
+        torch, np, cfg, params, ops, lengths=SERVE_PROMPTS,
         per_pass={"rmsnorm": (2 * n + 1,) * 2, "flash_attention": (n, n), "ssd_scan": (0, 0)},
         routes={"flash_attention": {"prefill": "mma_prefill", "decode": "decode"}},
     )
 
+    lap("4")
     # 5. checks
-    prefill_decode_consistency(torch, np, cfg, params)
+    dense_consistency(torch, np, cfg, params)
     small_model_against_cpu(torch, np, ops)
 
+    lap("5")
     # 6. where a decode step's time goes, and the calibrated curve
     profile_decode(torch, cfg, params)
     curves = {cfg.name: calibrate_phase(cfg, params, card)}
@@ -2317,6 +2601,7 @@ def main(argv=None) -> int:
     path_launches["deepseek-7b/reduced curve"], curves["deepseek-7b reduced"] = \
         reduced_curve_phase(torch, ops, dev, card)
 
+    lap("6")
     # 7. serve mamba2-370m at full width (main path 2), and its checks
     cfg = get_config("mamba2-370m")
     params = init_params(torch, Model, cfg, dev)
@@ -2336,19 +2621,24 @@ def main(argv=None) -> int:
     del params
     torch.cuda.empty_cache()
 
-    # 8. serve qwen3-moe-30b-a3b at full width (main path 5), and its checks
-    path_launches["qwen3-moe-30b-a3b"], curves["qwen3-moe-30b-a3b"] = moe_phase(
-        torch, np, ops, dev, card)
-    torch.cuda.empty_cache()
+    lap("7")
+    # 8. serve qwen3-moe-30b-a3b, then moonshot-v1-16b-a3b, at full width (main
+    # path 5), and their checks
+    moe_counts, curves["qwen3-moe-30b-a3b"] = moe_phase(torch, np, ops, dev, card)
+    path_launches.update(moe_counts)
 
+    lap("8")
     # 9. training (main paths 3 and 4), and its checks
-    path_launches["deepseek-7b/train"] = train_deepseek(torch, ops, dev)
+    path_launches["deepseek-7b/train"] = train_cut(torch, ops, dev, "deepseek-7b", 8)
+    torch.cuda.empty_cache()
+    path_launches["qwen3-moe-30b-a3b/train"] = train_cut(torch, ops, dev, "qwen3-moe-30b-a3b", 4)
     torch.cuda.empty_cache()
     path_launches["mamba2-370m/train"] = train_mamba(torch, ops)
     torch.cuda.empty_cache()
     small_train_against_cpu(torch, ops)
     resume_on_card(torch)
 
+    lap("9")
     # 10. the vlm, audio, sliding-window and hybrid families (main paths 6-8, and
     # the hybrid cut to its reduced config)
     path_launches["llava-next-mistral-7b"] = vlm_phase(torch, np, ops, dev)
@@ -2361,12 +2651,19 @@ def main(argv=None) -> int:
     path_launches["jamba-1.5-large-398b/reduced"] = hybrid_phase(torch, np, ops)
     torch.cuda.empty_cache()
 
+    lap("10")
+    # 10b. qwen3-32b and granite-34b at full width (main path 1 on the dense giants)
+    path_launches.update(dense_giants_phase(torch, np, ops, dev))
+
+    lap("10b")
     # 11. the parallel and launch layer: the dry run, and its cells on the card
     path_launches.update(parallel_phase(torch, ops, dev))
 
+    lap("11")
     # 12. the scheduler on the default curve, then on the curves of phases 6 and 8
     sched_phase(card, curves)
 
+    lap("12")
     line = kernels_line(results, path_launches, ops)
     log(f"total: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": line}))
@@ -2379,13 +2676,14 @@ def main(argv=None) -> int:
 def init_params(torch, Model, cfg, dev):
     from repro_torch.models.model import n_params
 
+    held = torch.cuda.memory_allocated()  # what earlier phases left: should be near 0
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     params = Model(cfg).init(torch.Generator(device=dev).manual_seed(0))
     torch.cuda.synchronize()
     log(f"init: {cfg.name} {cfg.n_layers} layers, {n_params(params)} params in {cfg.dtype}, "
         f"{time.perf_counter() - t0:.1f} s; memory {torch.cuda.memory_allocated() / 2**30:.2f} GiB, "
-        f"peak {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+        f"peak {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, held before {held / 2**30:.2f} GiB")
     return params
 
 

@@ -62,10 +62,10 @@ def init_from_spec(
     * "zeros": zeros in ``dtype`` (the conv bias);
     * ("normal_fp32", std): a seeded normal draw kept in fp32 whatever
       ``dtype`` is (the MoE router);
-    * ("normal_by_slice", std): a seeded normal draw in ``dtype``, taken one
-      leading slice at a time, so the fp32 scratch is one slice, not the
-      leaf (the stacked MoE expert weights: a full-width leaf in fp32 would
-      not fit beside the model);
+    * ("by_slice", init): ``init`` taken one leading slice at a time, in
+      the slice's dtype, so a draw's fp32 scratch is one slice, not the
+      leaf (every stacked block leaf: a full-width leaf in fp32 would not
+      fit beside the model);
     * ("log_uniform", lo, hi): fp32 ``log(U[lo, hi])`` (Mamba's A_log);
     * ("softplus_inv_uniform", lo, hi): fp32 ``log(expm1(U[lo, hi]))``, the
       inverse softplus of a uniform draw (Mamba's dt bias).
@@ -80,10 +80,13 @@ def init_from_spec(
         return torch.zeros(shape, dtype=dtype, device=dev)
     if isinstance(init, tuple) and init[0] == "normal_fp32":
         return normal(gen, shape, init[1], torch.float32, dev)
-    if isinstance(init, tuple) and init[0] == "normal_by_slice":
-        out = torch.empty(shape, dtype=dtype, device=dev)
-        for part in out:
-            part.copy_(normal(gen, shape[1:], init[1], dtype, dev))
+    if isinstance(init, tuple) and init[0] == "by_slice":
+        parts = (init_from_spec(gen, (shape[1:], init[1]), dtype, dev) for _ in range(shape[0]))
+        first = next(parts)
+        out = first.new_empty(shape)
+        out[0] = first
+        for i, part in enumerate(parts, 1):
+            out[i] = part
         return out
     if isinstance(init, tuple):
         kind, lo, hi = init

@@ -131,7 +131,9 @@ def param_spec(cfg: ArchConfig) -> Spec:
     nb = cfg.n_scan_blocks
 
     def stacked(spec: Spec) -> Spec:
-        return {k: ((nb,) + shape, init) for k, (shape, init) in spec.items()}
+        # drawn a block at a time: a whole leaf's fp32 scratch (granite-34b's
+        # w_up, 53 GB) would not fit
+        return {k: ((nb,) + shape, ("by_slice", init)) for k, (shape, init) in spec.items()}
 
     norm = ((nb, cfg.d_model), None)
     blocks: Spec = {}

@@ -36,15 +36,13 @@ Params = Dict[str, Any]
 
 
 def moe_spec(cfg: ArchConfig) -> Dict[str, Tuple[Tuple[int, ...], Any]]:
-    """Shape and init of each MoE leaf (see ``layers.init_from_spec``).
-    The expert leaves are drawn a leading slice at a time: stacked at
-    full width each is ``[n_layers, E, D, F]``."""
+    """Shape and init of each MoE leaf (see ``layers.init_from_spec``)."""
     D, F_, E = cfg.d_model, cfg.d_ff, cfg.n_experts
     return {
         "router": ((D, E), ("normal_fp32", D**-0.5)),
-        "w_up": ((E, D, F_), ("normal_by_slice", D**-0.5)),
-        "w_gate": ((E, D, F_), ("normal_by_slice", D**-0.5)),
-        "w_down": ((E, F_, D), ("normal_by_slice", F_**-0.5)),
+        "w_up": ((E, D, F_), D**-0.5),
+        "w_gate": ((E, D, F_), D**-0.5),
+        "w_down": ((E, F_, D), F_**-0.5),
     }
 
 

@@ -60,7 +60,11 @@ def _bits(x):
     return a.shape, name, a.tobytes()
 
 
-@pytest.mark.parametrize("arch", ["deepseek-7b", "mamba2-370m"])
+# qwen3-moe-30b-a3b: the fp32 router beside the experts
+ARCHS = ["deepseek-7b", "mamba2-370m", "qwen3-moe-30b-a3b"]
+
+
+@pytest.mark.parametrize("arch", ARCHS)
 @pytest.mark.parametrize("compress", [False, True])
 def test_jax_checkpoint_restores_in_port(tmp_path, arch, compress):
     state, _ = _jax_state(arch, compress)
@@ -76,7 +80,7 @@ def test_jax_checkpoint_restores_in_port(tmp_path, arch, compress):
     assert got.opt.step.dtype == torch.int32 and (got.error_feedback is not None) == compress
 
 
-@pytest.mark.parametrize("arch", ["deepseek-7b", "mamba2-370m"])
+@pytest.mark.parametrize("arch", ARCHS)
 def test_port_checkpoint_restores_in_jax(tmp_path, arch):
     _, state = _port_state(arch)
     checkpoint.save(tmp_path, 3, state)
@@ -106,6 +110,31 @@ def test_jax_bf16_checkpoint_restores_in_port_only(tmp_path):
         assert _bits(t) == _bits(want[key]), key
     with pytest.raises(ValueError, match="cast"):
         jckpt.restore(tmp_path, template)
+
+
+def test_moe_bf16_checkpoint_restores_in_port(tmp_path):
+    """A bf16 MoE TrainState, its router fp32 beside the bf16 experts:
+    JAX's checkpoint restores in the port bit for bit, and so does the
+    port's own (JAX's restore cannot read the |V2 experts: C2)."""
+    arch, key = "qwen3-moe-30b-a3b", "params/blocks/sub0/moe/"
+    state, _ = _jax_state(arch, dtype="bfloat16")
+    jckpt.save(tmp_path / "jax", 1, state)
+    with np.load(tmp_path / "jax" / "step_1" / "arrays.npz") as arrays:
+        assert arrays[key + "router"].dtype == np.float32
+        assert arrays[key + "w_up"].dtype == np.dtype("V2")
+    model = Model(reduced_config(arch, dtype="bfloat16"), device="cpu")
+    got, _ = checkpoint.restore(tmp_path / "jax", train_state_template(model), device="cpu")
+    want = jckpt._flatten(state)
+    for k, t in leaves_with_paths(got):
+        assert _bits(t) == _bits(want[k]), k
+    moe = got.params["blocks"]["sub0"]["moe"]
+    assert moe["router"].dtype == torch.float32 and moe["w_down"].dtype == torch.bfloat16
+    _, stepped = _port_state(arch, dtype="bfloat16")
+    checkpoint.save(tmp_path / "port", 2, stepped)
+    again, meta = checkpoint.restore(tmp_path / "port", train_state_template(model), device="cpu")
+    assert meta["step"] == 2
+    for (k, x), (_, y) in zip(leaves_with_paths(again), leaves_with_paths(stepped)):
+        assert x.dtype == y.dtype and torch.equal(x, y), k
 
 
 def test_port_bf16_file_has_jax_dtype_and_bytes(tmp_path):

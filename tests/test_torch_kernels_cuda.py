@@ -23,11 +23,12 @@ def cuda_device():
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("rows", [1, 4, 37, 300, 4096])
-@pytest.mark.parametrize("D", [128, 1000, 1024, 2048, 4096])
+@pytest.mark.parametrize("D", [128, 1000, 1024, 2048, 4096, 5120, 6144])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_rmsnorm_kernel_matches_plain(cuda_device, rows, D, dtype):
     """The widths the port runs (128, 1024, 2048, 4096) take the row
-    kernel; D = 1000 the general kernel."""
+    kernel; D = 1000 the general kernel, and so do qwen3-32b's 5120 and
+    granite-34b's 6144."""
     gen = torch.Generator(device=cuda_device).manual_seed(0)
     x = torch.randn(rows, D, generator=gen, device=cuda_device).to(_TDT[dtype])
     s = torch.randn(D, generator=gen, device=cuda_device)
@@ -40,11 +41,12 @@ def test_rmsnorm_kernel_matches_plain(cuda_device, rows, D, dtype):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("D", [128, 4096])
+@pytest.mark.parametrize("D", [128, 4096, 5120, 6144])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_rmsnorm_kernel_unaligned_views(cuda_device, D, dtype):
     """x and scale that start one element past a 16-byte boundary take the
-    general kernel at a width the row kernel is built for."""
+    general kernel's scalar path (at a width the row kernel is built for,
+    and at the general kernel's own widths)."""
     gen = torch.Generator(device=cuda_device).manual_seed(1)
     rows = 37
     x = torch.randn(rows * D + 1, generator=gen, device=cuda_device).to(_TDT[dtype])[1:]
@@ -535,19 +537,22 @@ def test_ssd_grad_recomputes_plain_through_views(cuda_device, dtype, route, P, N
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("arch", ["deepseek-7b", "mamba2-370m"])
+@pytest.mark.parametrize("arch", ["deepseek-7b", "mamba2-370m", "qwen3-moe-30b-a3b"])
 def test_train_step_loss_and_grads_match_cpu(cuda_device, arch):
-    """A small float32 model (head_dim 64; the reduced SSD sizes) on the
-    card through the kernels against the CPU plain path: loss within 1e-5
+    """A small float32 model (head_dim 64; the reduced SSD sizes; the
+    reduced MoE with its fp32 router at capacity factor 0.5: 40 pairs an
+    expert on average against 24 slots, so pairs drop) on the card
+    through the kernels against the CPU plain path: loss within 1e-5
     relative, each grad leaf within 1e-4 of its largest element; the step
-    launches 4L+1 RMSNorm and 2L attention or SSD kernels (forward and
-    the remat recompute)."""
+    launches 4L+1 RMSNorm (8L+1 with qk-norm) and 2L attention or SSD
+    kernels (forward and the remat recompute)."""
     from repro_torch.configs import reduced_config
     from repro_torch.models import Model
     from repro_torch.train.train_step import loss_and_grads
     from repro_torch.tree import leaves_with_paths, tree_map
 
-    cfg = reduced_config(arch, head_dim=64)
+    moe_cut = {"capacity_factor": 0.5} if arch == "qwen3-moe-30b-a3b" else {}
+    cfg = reduced_config(arch, head_dim=64, **moe_cut)
     cpu, gpu = Model(cfg, device="cpu"), Model(cfg, device=cuda_device)
     params = cpu.init(torch.Generator().manual_seed(0))
     toks = torch.randint(0, cfg.vocab_size, (2, 41), generator=torch.Generator().manual_seed(1),
@@ -556,9 +561,10 @@ def test_train_step_loss_and_grads_match_cpu(cuda_device, arch):
     ops.reset_launches()
     lg, _, gg = loss_and_grads(gpu, tree_map(lambda t: t.to(cuda_device), params),
                                {k: v.to(cuda_device) for k, v in batch.items()})
-    L = cfg.n_layers
-    mixer = "flash_attention" if arch == "deepseek-7b" else "ssd_scan"
-    assert ops.LAUNCHES == {"rmsnorm": 4 * L + 1, "flash_attention": 0, "ssd_scan": 0, mixer: 2 * L}
+    L, norms = cfg.n_layers, 4 if cfg.qk_norm else 2
+    mixer = "ssd_scan" if arch == "mamba2-370m" else "flash_attention"
+    assert ops.LAUNCHES == {"rmsnorm": 2 * norms * L + 1, "flash_attention": 0, "ssd_scan": 0,
+                            mixer: 2 * L}
     lc, _, gc = loss_and_grads(cpu, params, batch)
     assert lg.item() == pytest.approx(lc.item(), rel=1e-5)
     want = dict(leaves_with_paths(gc))

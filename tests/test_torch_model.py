@@ -1,4 +1,5 @@
-"""The port's Model against the JAX Model on reduced deepseek-7b, float32,
+"""The port's Model against the JAX Model on reduced deepseek-7b, qwen3-32b
+(qk-norm) and granite-34b (one KV head, the non-gated GeLU MLP), float32,
 with the JAX-initialised weights passed through convert.params_from_jax."""
 import dataclasses
 
@@ -11,42 +12,54 @@ torch = pytest.importorskip("torch")
 
 from repro.configs import reduced_config  # noqa: E402
 from repro.models import Model as JModel  # noqa: E402
+from repro_torch.configs import get_config, list_archs  # noqa: E402
 from repro_torch.convert import params_from_jax  # noqa: E402
 from repro_torch.models import Model as TModel  # noqa: E402
 from repro_torch.models.model import param_spec  # noqa: E402
 
 CFG = reduced_config("deepseek-7b")
+ARCHS = ["deepseek-7b", "qwen3-32b", "granite-34b"]
 TOL = 1e-4  # float32 logits after 2 blocks; sums run in another order
+
+
+def _models(cfg):
+    jm = JModel(cfg)
+    jp = jm.init(jax.random.PRNGKey(0))
+    tp = params_from_jax(jax.tree.map(np.asarray, jp), cfg)
+    return jm, jp, TModel(cfg, device="cpu"), tp
 
 
 @pytest.fixture(scope="module")
 def models():
-    jm = JModel(CFG)
-    jp = jm.init(jax.random.PRNGKey(0))
-    tp = params_from_jax(jax.tree.map(np.asarray, jp), CFG)
-    return jm, jp, TModel(CFG, device="cpu"), tp
+    return _models(CFG)
+
+
+@pytest.fixture(scope="module", params=ARCHS)
+def arch_models(request):
+    return _models(reduced_config(request.param))
 
 
 def _close(a, b):
     np.testing.assert_allclose(a.numpy(), np.asarray(b), atol=TOL, rtol=TOL)
 
 
-def test_prefill_logits_match(models):
-    jm, jp, tm, tp = models
-    toks = np.random.default_rng(0).integers(0, CFG.vocab_size, (2, 9)).astype(np.int32)
+def test_prefill_logits_match(arch_models):
+    jm, jp, tm, tp = arch_models
+    cfg = tm.cfg
+    toks = np.random.default_rng(0).integers(0, cfg.vocab_size, (2, 9)).astype(np.int32)
     lj, _ = jm.prefill(jp, {"tokens": jnp.asarray(toks)}, jm.init_cache(2, 16, jnp.float32))
     lt, _ = tm.prefill(tp, {"tokens": torch.tensor(toks)}, tm.init_cache(2, 16, torch.float32))
-    assert lt.shape == (2, 1, CFG.padded_vocab)
+    assert lt.shape == (2, 1, cfg.padded_vocab)
     _close(lt, lj)
 
 
 @pytest.mark.parametrize("per_row", [False, True])
-def test_decode_chain_matches(models, per_row):
+def test_decode_chain_matches(arch_models, per_row):
     """Prefill 6 tokens, then 5 decode steps with a scalar pos, or a [B]
     pos whose rows sit at different depths."""
-    jm, jp, tm, tp = models
+    jm, jp, tm, tp = arch_models
     rng = np.random.default_rng(1)
-    toks = rng.integers(0, CFG.vocab_size, (2, 12)).astype(np.int32)
+    toks = rng.integers(0, tm.cfg.vocab_size, (2, 12)).astype(np.int32)
     jc = jm.init_cache(2, 16, jnp.float32)
     tc = tm.init_cache(2, 16, torch.float32)
     _, jc = jm.prefill(jp, {"tokens": jnp.asarray(toks[:, :6])}, jc)
@@ -102,19 +115,75 @@ def test_entry_points_refuse_to_fall_back_to_cpu():
 
 
 def test_dense_init_draws_in_spec_order():
-    """The spec's leaf kinds (added for Mamba) leave the dense draws as
-    they were: one fp32 normal per std leaf, in the spec's order, and no
-    draw for the fp32-ones norm scales."""
+    """The dense draws in the spec's order: one fp32 normal per std leaf
+    outside the blocks, one per block slice of a stacked leaf (so the
+    fp32 scratch is one block's), and no draw for the fp32-ones norm
+    scales."""
     tp = TModel(CFG, device="cpu").init(torch.Generator().manual_seed(0))
     gen = torch.Generator().manual_seed(0)
 
-    def replay(spec, got):
+    def draw(shape, init):
+        if init is None:
+            return torch.ones(shape)
+        if isinstance(init, float):
+            return torch.randn(shape, generator=gen) * init
+        assert init[0] == "by_slice", init
+        return torch.stack([draw(shape[1:], init[1]) for _ in range(shape[0])])
+
+    def replay(spec, got, in_blocks=False):
         for k, leaf in spec.items():
             if isinstance(leaf, dict):
-                replay(leaf, got[k])
+                replay(leaf, got[k], in_blocks or k == "blocks")
                 continue
-            shape, std = leaf
-            want = torch.ones(shape) if std is None else torch.randn(shape, generator=gen) * std
-            torch.testing.assert_close(got[k], want, atol=0, rtol=0)
+            assert not (in_blocks and isinstance(leaf[1], float)), (k, leaf[1])
+            torch.testing.assert_close(got[k], draw(*leaf), atol=0, rtol=0)
 
     replay(param_spec(CFG), tp)
+
+
+def _draws(shape, init):
+    """numel of each torch.randn draw of one leaf, in order."""
+    if isinstance(init, float) or (isinstance(init, tuple) and init[0] == "normal_fp32"):
+        return [int(np.prod(shape))]
+    if isinstance(init, tuple) and init[0] == "by_slice":
+        return _draws(shape[1:], init[1]) * shape[0]
+    return []  # ones, zeros and the uniform draws (torch.rand)
+
+
+def _leaf_draws(spec, inside_blocks=False):
+    """(numel of each torch.randn draw the spec makes, in order, and the
+    bound on it: a stacked block leaf's slice, else None)."""
+    out = []
+    for k, leaf in spec.items():
+        if isinstance(leaf, dict):
+            out += _leaf_draws(leaf, inside_blocks or k == "blocks")
+            continue
+        shape, init = leaf
+        cap = int(np.prod(shape[1:])) if inside_blocks else None
+        out += [(n, cap) for n in _draws(shape, init)]
+    return out
+
+
+@pytest.mark.parametrize("arch", list_archs())
+def test_init_draws_at_most_a_block_slice(arch, monkeypatch):
+    """Every registered config's init on the meta device, with torch.randn
+    spied on: no draw for a leaf under ``blocks`` exceeds one block's
+    slice (the fp32 scratch of a draw is 4 bytes an element), and for the
+    two dense giants no draw at all exceeds 1 G elements (4 GB in fp32)."""
+    seen = []
+    randn = torch.randn
+
+    def spy(*size, **kw):
+        t = randn(*size, **kw)
+        seen.append(t.numel())
+        return t
+
+    monkeypatch.setattr(torch, "randn", spy)
+    cfg = get_config(arch)
+    TModel(cfg, device="meta").param_specs()
+    want = _leaf_draws(param_spec(cfg))
+    assert seen == [n for n, _ in want]
+    for n, cap in want:
+        assert cap is None or n <= cap, (arch, n, cap)
+    if arch in ("granite-34b", "qwen3-32b"):
+        assert max(seen) <= 1 << 30, (arch, max(seen))

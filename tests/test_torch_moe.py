@@ -212,23 +212,22 @@ def test_expert_init_draws_one_slice_at_a_time():
     tp = TModel(cfg, device="cpu").init(torch.Generator().manual_seed(0))
     gen = torch.Generator().manual_seed(0)
 
+    def draw(shape, init):
+        if init is None:
+            return torch.ones(shape)
+        if isinstance(init, float):
+            return (torch.randn(shape, generator=gen) * init).bfloat16()
+        if init[0] == "normal_fp32":
+            return torch.randn(shape, generator=gen) * init[1]
+        assert init[0] == "by_slice"
+        return torch.stack([draw(shape[1:], init[1]) for _ in range(shape[0])])
+
     def replay(spec, got):
         for k, leaf in spec.items():
             if isinstance(leaf, dict):
                 replay(leaf, got[k])
-                continue
-            shape, init = leaf
-            if init is None:
-                want = torch.ones(shape)
-            elif isinstance(init, float):
-                want = (torch.randn(shape, generator=gen) * init).bfloat16()
-            elif init[0] == "normal_fp32":
-                want = torch.randn(shape, generator=gen) * init[1]
             else:
-                assert init[0] == "normal_by_slice"
-                want = torch.stack([(torch.randn(shape[1:], generator=gen) * init[1]).bfloat16()
-                                    for _ in range(shape[0])])
-            torch.testing.assert_close(got[k], want, atol=0, rtol=0)
+                torch.testing.assert_close(got[k], draw(*leaf), atol=0, rtol=0)
 
     replay(spec, tp)
     assert tp["blocks"]["sub0"]["moe"]["router"].dtype == torch.float32

@@ -1,8 +1,11 @@
-"""The port's training against the JAX package's, on reduced deepseek-7b
-and mamba2-370m in float32 with the JAX-initialised weights passed through
-convert.params_from_jax: Model.loss and its grads at step 0, make_train_step
-trajectories (plain, two microbatches, int8 compression), and
-microbatching against one batch."""
+"""The port's training against the JAX package's, on reduced deepseek-7b,
+mamba2-370m, qwen3-moe-30b-a3b and moonshot-v1-16b-a3b in float32 with the
+JAX-initialised weights passed through convert.params_from_jax:
+Model.loss and its grads at step 0 (also on reduced qwen3-32b and
+granite-34b), make_train_step trajectories (plain, two microbatches, int8
+compression), and microbatching against one batch.  The MoE models' grads
+include the fp32 router's; their routing capacity is set per call, so per
+microbatch."""
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -24,7 +27,8 @@ from repro_torch.train import optimizer as topt  # noqa: E402
 from repro_torch.train import train_step as tts  # noqa: E402
 from repro_torch.tree import leaves, leaves_with_paths  # noqa: E402
 
-ARCHS = ["deepseek-7b", "mamba2-370m"]
+ARCHS = ["deepseek-7b", "mamba2-370m", "qwen3-moe-30b-a3b", "moonshot-v1-16b-a3b"]
+GRAD_ARCHS = ARCHS + ["qwen3-32b", "granite-34b"]  # step 0 only
 B, S = 4, 24  # S = 24: one full SSD chunk of 16 and a tail
 OPT = dict(lr_peak=1e-3, warmup_steps=2, total_steps=10)
 
@@ -70,9 +74,11 @@ def test_cross_entropy_matches_jax():
         assert nt.item() == float(nj)
 
 
+@pytest.mark.parametrize("pair", GRAD_ARCHS, indirect=True)
 def test_loss_and_grads_match_jax(pair):
-    """Step 0: loss within 1e-5 relative, each grad leaf within 1e-4 of
-    its largest element (float32; XLA and torch sum in other orders)."""
+    """Step 0: loss (and a MoE model's aux) within 1e-5 relative, each
+    grad leaf within 1e-4 of its largest element (float32; XLA and torch
+    sum in other orders)."""
     jcfg, jm, jp, cfg, tm = pair
     b = _batch(jcfg, 0, mask_some=True)
     (lj, mj), gj = jax.value_and_grad(jm.loss, has_aux=True)(
@@ -81,7 +87,10 @@ def test_loss_and_grads_match_jax(pair):
     lt, mt, gt = tts.loss_and_grads(tm, _tp(jp, cfg), {k: torch.from_numpy(v) for k, v in b.items()})
     np.testing.assert_allclose(lt.item(), float(lj), rtol=1e-5)
     assert mt["n_tokens"].item() == float(mj["n_tokens"]) == B * S - 5 - (S - 10)
-    assert mt["aux"].item() == float(mj["aux"]) == 0.0
+    if cfg.n_experts:
+        np.testing.assert_allclose(mt["aux"].item(), float(mj["aux"]), rtol=1e-5)
+    else:
+        assert mt["aux"].item() == float(mj["aux"]) == 0.0
     want = _paths(gj)
     got = dict(leaves_with_paths(gt))
     assert set(got) == set(want)
@@ -139,6 +148,10 @@ def test_train_trajectory_matches_jax(pair, variant):
     assert not any(p.requires_grad for p in leaves(ts.params))
 
 
+# a MoE step's microbatches route with their own capacity and aux term,
+# so they do not equal one batch (in either package: the trajectories
+# above hold them to JAX)
+@pytest.mark.parametrize("pair", ["deepseek-7b", "mamba2-370m"], indirect=True)
 def test_microbatches_equal_one_batch(pair):
     """Two microbatches of 2 rows against one batch of 4: loss, grad norm
     and the first moment (0.1 x the clipped gradient) within 1e-5."""
