@@ -109,12 +109,34 @@ Phases (any failure exits non-zero):
                 kernels (mma_prefill, decode); prefill/decode consistency,
                 a profiled decode step, and the reduced config (head_dim
                 16, fp32) on the card against the CPU.
+ 10c. jamba   — the hybrid at its own widths (d_model 8192, 64 query heads
+                on 8 KV heads of 128, 256 SSM heads of 64, ssm_state 128, 16
+                experts top-2) in bf16, cut to one super-block of 8 layers
+                with MoE on every 4th (jamba_cut_config: 27.03 G parameters);
+                init's peak against its reckoning; ServeEngine(max_len=512,
+                batch_size=4) serves 4 requests of 16 new tokens, every pass
+                24 RMSNorm and one flash launch (mma_prefill, decode), every
+                prefill 7 SSD scans on mma; each prefill's dropped pairs;
+                prefill/decode consistency with capacity raised; a 1 x 200
+                prefill through the kernels against the plain versions with
+                the routing pinned; a profiled decode step.  Then the mid
+                width (d_model 256, head_dim 64, ssm_state 64): in bf16
+                through the kernels (mma_prefill, mma) against the plain
+                versions on the card, and in fp32 against the CPU with the
+                same routing.
  11. parallel — the dry run (repro_torch.launch.dryrun) of one shape per
-                arch, and of the two MoE prefills, on a fake 16x16 mesh (256
-                ranks), a line per cell: fits_h100 (which every cell must),
-                the per-device peak, FLOPs, collective bytes, the
-                bottleneck.  Then, on a one-rank NCCL group and a (1, 1) cuda
-                mesh, with params, state, cache and batch as DTensors placed
+                arch, of the two MoE prefills and of the two Mamba prefills
+                (jamba-1.5-large-398b and mamba2-370m at prefill_32k), on a
+                fake 16x16 mesh (256 ranks), a line per cell: fits_h100
+                (which every cell must), the per-device peak, FLOPs,
+                collective bytes, the bottleneck, and each distinct kernel
+                call the cell hands a device, at its local shapes.  Every
+                distinct call of these cells is replayed on the card from
+                seeded inputs at those shapes against its plain version
+                (row error within PLAIN_TOL), with the route the launch
+                counters saw it take (RMSNorm's too), its ms and its bound;
+                each of the three kernels must be among them.  Then, on a
+                one-rank NCCL group and a (1, 1) cuda mesh, with params, state, cache and batch as DTensors placed
                 by the sharding rules, seven cells against their dry run on
                 the meta device at the same cut: mamba2-370m and
                 h2o-danube-3-4b at long_500k (one decode step, uncut),
@@ -156,7 +178,8 @@ Then one line {"kernels": [...]} and, last, {"ok": true, "device": {...}}.
 
     python3 chip_smoke.py --only rmsnorm,ssd,prefill_profile --src DIR
 
-runs phases 1-3 for the named kernels (and the profiled prefill, phase 11
+runs phases 1-3 for the named kernels (and the profiled prefill, phase 10c
+for "jamba", phase 11's dry run and replay for "replay", all of phase 11
 for "parallel", or for "sched" deepseek-7b's calibrated curves, full width
 and reduced, and phase 12 on them) on the port in DIR/src, then stops: two
 trees' kernels timed in one chip call.
@@ -235,6 +258,61 @@ def bound(bytes_moved: float, flops: float, dtype: str):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def rmsnorm_bound(x):
+    """``bound`` of one RMSNorm call: x read and y written once, the fp32
+    scale read once, 4 operations an element."""
+    D = x.shape[-1]
+    rows = x.numel() // D
+    return bound(rows * D * 2 * x.element_size() + 4 * D, 4 * rows * D, "float32")
+
+
+def flash_bound(torch, q, k, q_pos, kv_pos, causal, window):
+    """``bound`` of one flash-attention call on this data: q read and the
+    output written once, each key and value row that some query sees read
+    once, and the positions; 4 K H operations a visible (query, key) pair,
+    a row that sees no key reading (and averaging) all T.  The mask is
+    formed over query rows in chunks of FLASH_PLAIN_BYTES."""
+    from repro_torch.kernels import ref
+
+    B, Sq, H, K = q.shape
+    T, G = k.shape[1], k.shape[2]
+    rows = max(1, FLASH_PLAIN_BYTES // (B * T))
+    pairs, seen = 0, torch.zeros(B, T, dtype=torch.bool, device=q.device)
+    for i in range(0, Sq, rows):
+        m = ref.attention_mask(q_pos[..., i:i + rows], kv_pos, causal, window)
+        m = m.expand(B, *m.shape[-2:])
+        m = m | ~m.any(dim=-1, keepdim=True)
+        pairs += int(m.sum())
+        seen |= m.any(dim=1)
+    esize = q.element_size()
+    moved = (2 * q.numel() * esize + 2 * int(seen.sum()) * G * K * esize
+             + 4 * (q_pos.numel() + kv_pos.numel()))
+    return bound(moved, 4 * K * H * pairs, str(q.dtype).split(".")[-1])
+
+
+def ssd_bound(torch, x, Bm, chunk, init_state, out_dtype):
+    """``bound`` of one SSD-scan call: x, dt, A, B and C read and y and the
+    final state written once (the initial state read too, if given); the
+    operations of ``launch/cost.py``'s ``ssd_flops``."""
+    from repro_torch.launch.cost import ssd_flops
+
+    B, S, H, P = x.shape
+    N = Bm.shape[-1]
+    esize = x.element_size()
+    ysize = torch.empty((), dtype=out_dtype).element_size()
+    moved = (B * S * H * P * (esize + ysize) + 4 * B * S * H + 4 * H + 2 * B * S * N * esize
+             + 4 * B * H * N * P * (2 if init_state is not None else 1))
+    return bound(moved, ssd_flops(B, S, H, P, N, chunk), str(x.dtype).split(".")[-1])
+
+
+def ssd_dt_A(torch, shape, gen, dev):
+    """The SSD scan's dt (``shape`` [B, S, H]) in [0.001, 0.1) and A [H] in
+    (-4, -0.5], drawn from ``gen``."""
+    dt = torch.rand(shape, generator=gen, device=dev) * 0.099 + 0.001
+    A = -(torch.rand(shape[-1], generator=gen, device=dev) * 3.5 + 0.5)
+    return dt, A
+
+
 # --------------------------------------------------------------------------
 # phase 3: kernels against their plain versions
 # --------------------------------------------------------------------------
@@ -266,6 +344,9 @@ def rmsnorm_cases(torch, ops, ref, timer, dev):
         # qwen3-32b's d_model 5120 and granite-34b's 6144 at 4 x 512 tokens
         ("bfloat16", 4000, 1280), ("bfloat16", 8192, 3840),
         ("bfloat16", 2048, 5120), ("bfloat16", 2048, 6144),
+        # jamba-1.5-large-398b's d_model 8192 and its gated norm over d_inner
+        # 16384, at a prefill of 4 x 512 tokens: the general kernel
+        ("bfloat16", 2048, 8192), ("bfloat16", 2048, 16384),
     ]
     for dtype, rows, D in cases:
         tdt = getattr(torch, dtype)
@@ -278,8 +359,7 @@ def rmsnorm_cases(torch, ops, ref, timer, dev):
         err = (got.float() - want.float()).abs().max().item()
         ok = torch.allclose(got.float(), want.float(), atol=tol, rtol=tol)
         w = scale.to(tdt)
-        esize = x.element_size()
-        b_ms, b_by = bound(rows * D * 2 * esize + 4 * D, 4 * rows * D, "float32")
+        b_ms, b_by = rmsnorm_bound(x)
         out.append(dict(
             kernel="rmsnorm", case=f"{dtype} rows={rows} D={D}",
             max_abs_err=err, tol=tol, ok=ok,
@@ -385,6 +465,9 @@ def flash_cases(torch, ops, ref, timer, dev):
         # deepseek-7b and qwen3-moe-30b-a3b x decode_32k at batch 2 (phase 11)
         ("decode_32k", 2, 1, 32768, 32, 32, 128, "bfloat16", None, last_q, full_kv, True),
         ("decode_32k_moe", 2, 1, 32768, 32, 4, 128, "bfloat16", None, last_q, full_kv, True),
+        # jamba-1.5-large-398b's attention layer: 64 query heads on 8 KV
+        # heads, a prefill of 4 x 512
+        ("prefill_jamba", 4, 512, 512, 64, 8, 128, "bfloat16", None, None, None, True),
     ]
     # head_dim 16, the reduced configs' width: decode over 4,096 slots with
     # rows at their own depths, long causal and windowed prefills, and the
@@ -436,19 +519,10 @@ def flash_cases(torch, ops, ref, timer, dev):
                 faults[fault] = rel_rows(ref.flash_attention_ref(fq, k, v, fqp, fkp, fc, fw), want, 2)
             ok = ok and min(faults.values()) > rel_tol
 
-        mask = ref.attention_mask(qpos, kvpos, causal, window)  # [Sq,T] or [B,Sq,T]
-        # the work this data needs: visible pairs, and every key for a row
-        # that sees none (it averages v over all T keys)
-        mask_b = mask.expand(B, Sq, T)
-        mask_b = mask_b | ~mask_b.any(dim=-1, keepdim=True)
-        pairs = int(mask_b.sum())
-        keys_needed = int(mask_b.any(dim=1).sum())  # per batch row, union over queries
-        esize = q.element_size()
-        moved = (2 * q.numel() * esize + 2 * keys_needed * G * K * esize
-                 + 4 * (qpos.numel() + kvpos.numel()))
-        b_ms, b_by = bound(moved, 4 * K * H * pairs, dtype)
+        b_ms, b_by = flash_bound(torch, q, k, qpos, kvpos, causal, window)
         lib_ms = None
         if name != "fully_masked":  # SDPA gives NaN for a row with no key
+            mask = ref.attention_mask(qpos, kvpos, causal, window)  # [Sq,T] or [B,Sq,T]
             qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
             attn_mask = mask[None, None] if mask.ndim == 2 else mask[:, None]
             gqa = {"enable_gqa": True} if H != G else {}
@@ -470,8 +544,6 @@ def flash_cases(torch, ops, ref, timer, dev):
 
 
 def ssd_cases(torch, ops, ref, timer, dev):
-    from repro_torch.launch.cost import ssd_flops
-
     cases = [
         # name, B, S, H, P, N, chunk, dtype of x/B/C, dtype of y
         ("prefill", 1, 512, 32, 64, 128, 128, "bfloat16", "float32"),  # the model's call
@@ -489,14 +561,16 @@ def ssd_cases(torch, ops, ref, timer, dev):
         ("reduced", 1, 12, 8, 16, 16, 16, "float32", "float32"),
         ("train", 8, 512, 32, 64, 128, 128, "bfloat16", "float32"),  # mamba2-370m's step
         ("train_4k", 8, 4096, 32, 64, 128, 128, "bfloat16", "float32"),  # phase 11's train cell
+        # jamba-1.5-large-398b's Mamba layers: 256 heads of 64, N 128, at a
+        # prefill of 4 x 512
+        ("jamba", 4, 512, 256, 64, 128, 128, "bfloat16", "float32"),
     ]
     gen = torch.Generator(device=dev).manual_seed(5)
     out = []
     for name, B, S, H, P, N, Q, dtype, ydtype in cases:
         tdt, ydt = getattr(torch, dtype), getattr(torch, ydtype)
         x = torch.randn(B, S, H, P, generator=gen, device=dev).to(tdt)
-        dt = torch.rand(B, S, H, generator=gen, device=dev) * 0.099 + 0.001
-        A = -(torch.rand(H, generator=gen, device=dev) * 3.5 + 0.5)
+        dt, A = ssd_dt_A(torch, (B, S, H), gen, dev)
         Bm = torch.randn(B, S, N, generator=gen, device=dev).to(tdt)
         Cm = torch.randn(B, S, N, generator=gen, device=dev).to(tdt)
         y_want, s_want = ref.ssd_chunked_ref(x, dt, A, Bm, Cm, Q)
@@ -524,14 +598,10 @@ def ssd_cases(torch, ops, ref, timer, dev):
               and torch.allclose(y.float(), y_want, atol=tol, rtol=tol)
               and torch.allclose(s, s_want, atol=2e-4, rtol=2e-4)
               and torch.allclose(s, s_seq, atol=2e-4, rtol=2e-4))
-        S_run = S - lo
-        esize, ysize = x.element_size(), y.element_size()
-        moved = (B * S_run * H * P * (esize + ysize) + 4 * B * S_run * H + 4 * H
-                 + 2 * B * S_run * N * esize + 4 * B * H * N * P * (2 if init is not None else 1))
-        b_ms, b_by = bound(moved, ssd_flops(B, S_run, H, P, N, Q), dtype)  # launch/cost.py
+        b_ms, b_by = ssd_bound(torch, x, Bm, Q, init, ydt)
         out.append(dict(
             kernel="ssd_scan",
-            case=f"{name} {dtype} B={B} S={S_run} H={H} P={P} N={N} chunk={Q} y={ydtype}"
+            case=f"{name} {dtype} B={B} S={S - lo} H={H} P={P} N={N} chunk={Q} y={ydtype}"
                  + (" init_state" if init is not None else ""),
             route=route, max_abs_err=err, tol=tol, ok=ok,
             ms=timer.ms(kernel),
@@ -692,12 +762,13 @@ class PinnedRouting:
     """While installed and while ``pins`` holds choices, makes each MoE
     routing call (``moe._scores``) choose the next pinned experts: top-k
     taken from the call's own scores at those experts, renormalised as the
-    router does."""
+    router does.  ``differ`` counts the tokens whose own top-k was another
+    set of experts."""
 
     def __init__(self):
         from repro_torch.models import moe
 
-        self.moe, self.pins = moe, []
+        self.moe, self.pins, self.differ = moe, [], 0
 
     def __enter__(self):
         self.scores = scores = self.moe._scores
@@ -705,7 +776,8 @@ class PinnedRouting:
         def pinned(router, cfg, xt):
             probs, top_p, top_i = scores(router, cfg, xt)
             if self.pins:
-                top_i = self.pins.pop(0)
+                own, top_i = top_i, self.pins.pop(0)
+                self.differ += int((own.sort(-1).values != top_i.sort(-1).values).any(-1).sum())
                 top_p = probs.gather(1, top_i)
                 top_p = top_p / top_p.sum(-1, keepdim=True).clamp(min=1e-9)
             return probs, top_p, top_i
@@ -744,7 +816,7 @@ def moe_consistency(torch, np, cfg, params, near_tie_flips=False):
     import dataclasses
 
     cfg = dataclasses.replace(cfg, capacity_factor=float(cfg.n_experts))  # C >= T K
-    L, ns = cfg.n_layers, CONSISTENCY_PROMPTS
+    L, ns = moe_layers(cfg), CONSISTENCY_PROMPTS
     with RouteLog() as rl:
         plain, tol = prefill_decode_consistency(torch, np, cfg, params)
     calls = [rl.records[i : i + L] for i in range(0, len(rl.records), L)]  # a model call each
@@ -761,7 +833,7 @@ def moe_consistency(torch, np, cfg, params, near_tie_flips=False):
         f"differ between the full prefill and prefill + decode")
     for layer, row, t, (fp, fi), (op, oi) in flips[:3]:
         top = torch.topk(fp, cfg.top_k + 1).indices
-        log(f"consistency {cfg.name}: flip at layer {layer}, row {row}, token {t}: experts "
+        log(f"consistency {cfg.name}: flip at MoE layer {layer}, row {row}, token {t}: experts "
             f"{sorted(fi.tolist())} (full prefill) against {sorted(oi.tolist())}; scores at "
             f"{top.tolist()}: {[round(float(x), 7) for x in fp[top]]} against "
             f"{[round(float(x), 7) for x in op[top]]}")
@@ -791,7 +863,7 @@ def moe_consistency(torch, np, cfg, params, near_tie_flips=False):
             swapped = sorted(set(oi.tolist()) - set(fi.tolist()))
             top = float(fp[dropped].max())
             gap = (top - float(fp[swapped].min())) / top
-            log(f"consistency {cfg.name}: row {row}'s first flip, layer {layer}, token {t}: "
+            log(f"consistency {cfg.name}: row {row}'s first flip, MoE layer {layer}, token {t}: "
                 f"experts {dropped} dropped for {swapped}, full-prefill scores "
                 f"{[float(fp[e]) for e in dropped]} against {[float(fp[e]) for e in swapped]}, "
                 f"relative gap {gap:.5f} (near tie below {NEAR_TIE})")
@@ -1124,21 +1196,22 @@ def moe_weight_bytes(cfg, params, batch: int):
         if "tokens" in key:
             size = batch * t.shape[1] * t.element_size()
         step += size
-        if any(w in key for w in ("w_up", "w_gate", "w_down")):
+        if "moe/" in key and any(w in key for w in ("w_up", "w_gate", "w_down")):
             expert += size
     return expert, step
 
 
-def serve_moe(torch, np, cfg, params, ops, lengths):
+def serve_moe(torch, np, cfg, params, ops, lengths, per_pass=None, routes=None):
     """serve() with every routing call recorded: each prefill's dropped
-    (token, k) pairs, layer by layer."""
-    n = cfg.n_layers
+    (token, k) pairs, MoE layer by MoE layer.  ``per_pass`` and ``routes``
+    default to a MoE transformer's (every layer attention and MoE)."""
+    n = moe_layers(cfg)
     with RouteLog() as rl:
         counts = serve(
             torch, np, cfg, params, ops, lengths=lengths,
-            per_pass={"rmsnorm": (norms_a_layer(cfg) * n + 1,) * 2, "flash_attention": (n, n),
-                      "ssd_scan": (0, 0)},
-            routes={"flash_attention": {"prefill": "mma_prefill", "decode": "decode"}},
+            per_pass=per_pass or {"rmsnorm": (norms_a_layer(cfg) * n + 1,) * 2,
+                                  "flash_attention": (n, n), "ssd_scan": (0, 0)},
+            routes=routes or {"flash_attention": {"prefill": "mma_prefill", "decode": "decode"}},
         )
     # one pass is n routing calls of T tokens each
     passes = [rl.records[i : i + n] for i in range(0, len(rl.records), n)]
@@ -1153,7 +1226,7 @@ def serve_moe(torch, np, cfg, params, ops, lengths):
         dropped = [int((~r.keep).sum()) for r in ps]
         used = sorted(int((r.load > 0).sum()) for r in ps)
         log(f"serve {cfg.name}: prefill T={T}: capacity {ps[0].capacity} a expert, {T * cfg.top_k} "
-            f"(token, k) pairs a layer; dropped {sum(dropped)} over {n} layers "
+            f"(token, k) pairs a layer; dropped {sum(dropped)} over {n} MoE layers "
             f"({sum(dropped) / (n * T * cfg.top_k):.4f}), by layer {dropped}; experts chosen "
             f"by any pair a layer: min {used[0]}, median {used[n // 2]}, max {used[-1]} of "
             f"{cfg.n_experts}; largest load {max(int(r.load.max()) for r in ps)} pairs")
@@ -1245,6 +1318,21 @@ def moe_phase(torch, np, ops, dev, card):
         del params
         torch.cuda.empty_cache()
     return counts, curve
+
+
+def moe_layers(cfg) -> int:
+    """The MoE layers of a model: its routing calls a forward pass."""
+    return cfg.n_scan_blocks * sum(f == "moe" for _, f in cfg.layer_kinds())
+
+
+def hybrid_layers(cfg):
+    """(attention layers, Mamba layers, RMSNorm launches a forward pass) of
+    a hybrid: every layer has ln1 and ln2 (dense or MoE ff), a Mamba layer
+    adds its gated norm, and the final norm."""
+    kinds, nb = cfg.layer_kinds(), cfg.n_scan_blocks
+    n_attn = nb * sum(m == "attn" for m, _ in kinds)
+    n_mamba = nb * sum(m == "mamba" for m, _ in kinds)
+    return n_attn, n_mamba, 2 * cfg.n_layers + n_mamba + 1
 
 
 def norms_a_layer(cfg) -> int:
@@ -1780,23 +1868,63 @@ def audio_phase(torch, np, ops, dev):
 
 def kernels_against_plain(torch, ops, model, params, inputs, label, tol=5e-2):
     """Last-position logits of one prefill through the kernels against the
-    same prefill with the wrappers swapped for their plain versions, on
-    the card, in the model's type (relative L2 <= tol)."""
-    from repro_torch.kernels import ref
-
-    got = model.prefill(params, inputs)[0].float()
-    saved = ops.rmsnorm, ops.flash_attention
-    ops.rmsnorm, ops.flash_attention = ref.rmsnorm_ref, ref.flash_attention_ref
-    try:
-        n = dict(ops.LAUNCHES)
+    same prefill with the wrappers swapped for their plain versions
+    (``PlainKernels``), on the card, in the model's type (relative L2 <=
+    tol).  Each MoE routing call of the plain pass takes the experts the
+    kernel pass chose (bf16 rounds the two passes' router scores apart near
+    ties); a model without MoE makes none."""
+    with RouteLog() as rl:
+        got = model.prefill(params, inputs)[0].float()
+    with PlainKernels(torch, ops), PinnedRouting() as pr:
+        pr.pins = [r.top_i for r in rl.records]
         want = model.prefill(params, inputs)[0].float()
-        assert ops.LAUNCHES == n, "a kernel ran in the plain pass"
-    finally:
-        ops.rmsnorm, ops.flash_attention = saved
     err = rel_err(got, want)
     log(f"{label}: logits through the kernels against the plain versions on the card, rel L2 "
-        f"{err:.3e} (tol {tol})")
+        f"{err:.3e} (tol {tol}); {len(rl.records)} routing calls pinned to the kernel pass's, "
+        f"{pr.differ} token choices would differ")
     assert bool(torch.isfinite(got).all()) and err <= tol, err
+
+
+def plain_versions(torch):
+    """Each kernel wrapper's plain version, called as the wrapper is: the
+    SSD scan's output in the asked type, flash attention over query rows in
+    chunks whose fp32 scores take at most FLASH_PLAIN_BYTES (a row's output
+    reads its query row alone)."""
+    from repro_torch.kernels import ref
+
+    def ssd_plain(x, dt, A, Bm, Cm, chunk, init_state=None, out_dtype=torch.float32):
+        y, state = ref.ssd_chunked_ref(x, dt, A, Bm, Cm, chunk, init_state)
+        return y.to(out_dtype), state
+
+    def flash_plain(q, k, v, q_pos, kv_pos, causal=True, window=None):
+        B, Sq, H, _ = q.shape
+        rows = max(1, FLASH_PLAIN_BYTES // (B * H * k.shape[1] * 4))
+        return torch.cat([ref.flash_attention_ref(q[:, i:i + rows], k, v, q_pos[..., i:i + rows],
+                                                  kv_pos, causal, window)
+                          for i in range(0, Sq, rows)], dim=1)
+
+    return {"rmsnorm": ref.rmsnorm_ref, "flash_attention": flash_plain, "ssd_scan": ssd_plain}
+
+
+class PlainKernels:
+    """While installed, the kernel wrappers are their plain versions
+    (``plain_versions``): no kernel may launch."""
+
+    def __init__(self, torch, ops):
+        self.ops, self.plain = ops, plain_versions(torch)
+
+    def __enter__(self):
+        self.saved = {name: getattr(self.ops, name) for name in self.plain}
+        self.launches = dict(self.ops.LAUNCHES)
+        for name, fn in self.plain.items():
+            setattr(self.ops, name, fn)
+        return self
+
+    def __exit__(self, *exc):
+        for name, wrapper in self.saved.items():
+            setattr(self.ops, name, wrapper)
+        assert exc[0] is not None or self.ops.LAUNCHES == self.launches, \
+            "a kernel ran in the plain pass"
 
 
 def swa_phase(torch, np, ops, dev):
@@ -1862,27 +1990,21 @@ def swa_phase(torch, np, ops, dev):
     return counts
 
 
-def hybrid_phase(torch, np, ops):
-    """The hybrid family on the card, cut: reduced jamba-1.5-large-398b
-    (two super-blocks of 8 layers: attention at the 5th, Mamba elsewhere,
-    MoE on every 2nd) at its own head_dim 16, fp32.  Prefill of 2 x 12 tokens and
-    4 decode steps at per-row positions on the card against the CPU
-    (logits within 1e-4, the same experts and dropped pairs in every
-    routing call); then ServeEngine serves prompts of 3 or more tokens on
-    the card, every pass's launches counted, with the CPU engine's tokens.
-    Returns the served run's launches."""
-    import dataclasses
-
-    from repro_torch.configs import reduced_config
+def hybrid_against_cpu(torch, np, ops, cfg, seed, label):
+    """A hybrid ``cfg`` (fp32) on the card through the kernels against the
+    same weights on the CPU through the plain versions: a prefill of 2 x 12
+    tokens and 4 decode steps at per-row positions; logits within 1e-4, the
+    same experts and dropped pairs in every routing call, and every
+    attention launch the prefill's fma and the decode steps' decode route
+    at the config's head dim.  Returns the card's params and the CPU's."""
     from repro_torch.models import Model
-    from repro_torch.serve.engine import Request, ServeEngine
 
     tol = 1e-4
-    cfg = reduced_config("jamba-1.5-large-398b")
     cpu, gpu = Model(cfg, device="cpu"), Model(cfg)
-    p_cpu = cpu.init(torch.Generator().manual_seed(16))
+    p_cpu = cpu.init(torch.Generator().manual_seed(seed))
     p_gpu = _tree_to(p_cpu, gpu.device)
-    toks = torch.from_numpy(np.random.default_rng(17).integers(0, cfg.vocab_size, (2, 16)).astype(np.int32))
+    toks = torch.from_numpy(np.random.default_rng(seed + 1).integers(
+        0, cfg.vocab_size, (2, 16)).astype(np.int32))
 
     def run(model, params):
         dev = model.device
@@ -1899,25 +2021,35 @@ def hybrid_phase(torch, np, ops):
     shapes = _flash_shapes(_diff(_launch_counts(ops), before))
     out_cpu, r_cpu = run(cpu, p_cpu)
     worst = max((a - b).abs().max().item() for a, b in zip(out_gpu, out_cpu))
-    moe_layers = sum(f == "moe" for _, f in cfg.layer_kinds()) * cfg.n_scan_blocks
-    same = len(r_gpu) == len(r_cpu) == 5 * moe_layers and all(
+    same = len(r_gpu) == len(r_cpu) == 5 * moe_layers(cfg) and all(
         a[0] == b[0] and torch.equal(a[1], b[1]) and torch.equal(a[2], b[2])
         for a, b in zip(r_gpu, r_cpu))
     dropped = sum(int((~keep).sum()) for *_, keep in r_gpu)
-    nb = cfg.n_scan_blocks
-    kinds = cfg.layer_kinds()
-    n_attn = nb * sum(m == "attn" for m, _ in kinds)
-    log(f"hybrid {cfg.name} (reduced, head_dim {cfg.head_dim}, fp32): card kernels vs cpu plain "
-        f"path, prefill 2 x 12 + 4 decode steps: max abs logit err {worst:.3e} (tol {tol}); the "
-        f"same experts and dropped pairs in all {len(r_gpu)} routing calls: {same} ({dropped} "
-        f"pairs dropped); flash by shape {shapes}")
+    n_attn = hybrid_layers(cfg)[0]
+    log(f"{label}: card kernels vs cpu plain path, prefill 2 x 12 + 4 decode steps: max abs logit "
+        f"err {worst:.3e} (tol {tol}); the same experts and dropped pairs in all {len(r_gpu)} "
+        f"routing calls: {same} ({dropped} pairs dropped); flash by shape {shapes}")
     assert same and worst <= tol, (same, worst)
-    assert shapes == {"fma K=16 causal": n_attn, "decode K=16 causal": 4 * n_attn}, shapes
+    K = cfg.head_dim
+    assert shapes == {f"fma K={K} causal": n_attn, f"decode K={K} causal": 4 * n_attn}, shapes
+    return p_gpu, p_cpu
 
-    n_mamba = nb * sum(m == "mamba" for m, _ in kinds)
-    # every sub-layer has ln1 and ln2 (dense or MoE ff); a Mamba layer adds
-    # its gated norm
-    norms = 2 * cfg.n_layers + n_mamba + 1
+
+def hybrid_phase(torch, np, ops):
+    """The hybrid family on the card, cut: reduced jamba-1.5-large-398b
+    (two super-blocks of 8 layers: attention at the 5th, Mamba elsewhere,
+    MoE on every 2nd) at its own head_dim 16, fp32.  Prefill of 2 x 12 tokens and
+    4 decode steps at per-row positions on the card against the CPU
+    (``hybrid_against_cpu``); then ServeEngine serves prompts of 3 or more
+    tokens on the card, every pass's launches counted, with the CPU
+    engine's tokens.  Returns the served run's launches."""
+    from repro_torch.configs import reduced_config
+    from repro_torch.serve.engine import Request, ServeEngine
+
+    cfg = reduced_config(JAMBA)
+    p_gpu, p_cpu = hybrid_against_cpu(torch, np, ops, cfg, 16,
+                                      f"hybrid {cfg.name} (reduced, head_dim {cfg.head_dim}, fp32)")
+    n_attn, n_mamba, norms = hybrid_layers(cfg)
     counts = serve(
         torch, np, cfg, p_gpu, ops, lengths=[3, 12, 5, 7],
         per_pass={"rmsnorm": (norms, norms), "flash_attention": (n_attn, n_attn),
@@ -1975,13 +2107,178 @@ def dense_giants_phase(torch, np, ops, dev):
 
 
 # --------------------------------------------------------------------------
+# phase 10c: jamba-1.5-large-398b at its own widths
+# --------------------------------------------------------------------------
+
+JAMBA = "jamba-1.5-large-398b"
+
+
+def jamba_cut_config():
+    """jamba-1.5-large-398b at every one of its own widths (d_model 8192,
+    d_ff 24576, 64 query heads on 8 KV heads of 128, 256 SSM heads of 64,
+    ssm_state 128, vocab 65,536, 16 experts top-2), cut to one super-block
+    of 8 layers with MoE on every 4th (positions 3 and 7): 27.03 G
+    parameters, 54.05 GB in bf16.  The published super-block (MoE on every
+    2nd layer) is 45.14 G, 90.3 GB, more than one card holds; cutting the
+    expert count instead would change the router's width and its routing."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+
+    return dataclasses.replace(get_config(JAMBA), n_layers=8, moe_period=4)
+
+
+def jamba_mid_config(dtype: str):
+    """The reduced jamba-1.5-large-398b at a width whose kernels take their
+    tensor-core routes in bf16 (head_dim 64; SSD N 64, P 32, chunk 64), and
+    which the CPU also holds: one super-block of 8 layers, MoE on every 4th."""
+    from repro_torch.configs import reduced_config
+
+    return reduced_config(JAMBA, n_layers=8, moe_period=4, d_model=256, n_heads=4, n_kv_heads=2,
+                          head_dim=64, ssm_state=64, ssm_head_dim=32, ssm_chunk=64, dtype=dtype)
+
+
+def largest_draw_bytes(cfg) -> int:
+    """The fp32 scratch of init's largest draw: a stacked leaf is drawn one
+    block slice at a time (``("by_slice", init)``), any other leaf whole."""
+    import math
+
+    from repro_torch.models.model import param_spec
+
+    def walk(spec):
+        if isinstance(spec, dict):
+            return max(walk(v) for v in spec.values())
+        shape, init = spec
+        if isinstance(init, tuple) and init[0] == "by_slice":
+            shape = shape[1:]
+        return 4 * math.prod(shape)
+
+    return walk(param_spec(cfg))
+
+
+def jamba_cut_phase(torch, np, ops, dev):
+    """jamba-1.5-large-398b at its own widths in bf16 (``jamba_cut_config``):
+    init (its peak against the reckoning: the parameters and the fp32
+    scratch of the largest draw), then ServeEngine(max_len=512,
+    batch_size=4) serves NEW_PATH_PROMPTS of 16 new tokens, every pass 24
+    RMSNorm and one flash launch (mma_prefill, decode) and every prefill 7
+    SSD scans on mma, each prefill's dropped pairs logged and none on a
+    decode step; prefill/decode consistency with capacity raised
+    (``moe_consistency``); a 1 x 200 prefill through the kernels against
+    the plain versions with the routing pinned; a profiled decode step.
+    Returns the serve run's launches."""
+    from repro_torch.models import Model
+    from repro_torch.tree import leaves, leaves_with_paths
+
+    cfg = jamba_cut_config()
+    params = init_params(torch, Model, cfg, dev)
+    peak = torch.cuda.max_memory_allocated()
+    param_bytes = sum(t.numel() * t.element_size() for t in leaves(params))
+    scratch = largest_draw_bytes(cfg)
+    log(f"init {cfg.name} cut to n_layers {cfg.n_layers}, moe_period {cfg.moe_period}: peak "
+        f"{peak / 1e9:.2f} GB against the reckoning {(param_bytes + scratch) / 1e9:.2f} GB "
+        f"(params {param_bytes / 1e9:.2f} GB and the fp32 scratch of the largest draw "
+        f"{scratch / 1e9:.2f} GB)")
+    n_attn, n_mamba, norms = hybrid_layers(cfg)
+    cache = Model(cfg, device="meta").init_cache(1, 512)
+    kv = sum(t.nbytes for k, t in leaves_with_paths(cache) if k.split("/")[-1] in ("k", "v")) // 512
+    state = sum(t.nbytes for k, t in leaves_with_paths(cache) if k.split("/")[-1] in ("ssm", "conv"))
+    log(f"init {cfg.name}: KV cache {kv / 1024:.0f} KiB a token ({n_attn} attention layer), "
+        f"{4 * 512 * kv / 2**20:.0f} MiB at batch 4 x 512; Mamba state and conv window "
+        f"{state / 2**20:.2f} MiB a row ({n_mamba} Mamba layers)")
+    counts = serve_moe(
+        torch, np, cfg, params, ops, NEW_PATH_PROMPTS,
+        per_pass={"rmsnorm": (norms, norms), "flash_attention": (n_attn, n_attn),
+                  "ssd_scan": (n_mamba, 0)},
+        routes={"flash_attention": {"prefill": "mma_prefill", "decode": "decode"},
+                "ssd_scan": {"prefill": "mma", "decode": "mma"}})
+    moe_consistency(torch, np, cfg, params, near_tie_flips=True)
+    tok = torch.from_numpy(np.random.default_rng(19).integers(
+        0, cfg.vocab_size, (1, 200)).astype(np.int32)).to(dev)
+    kernels_against_plain(torch, ops, Model(cfg), params, {"tokens": tok},
+                          f"{cfg.name} cut prefill 1 x 200")
+    profile_decode(torch, cfg, params, steps=NEW_PATH_PROFILED_STEPS,
+                   bounds=moe_weight_bytes(cfg, params, 4))
+    del params
+    torch.cuda.empty_cache()
+    return counts
+
+
+def jamba_mid_bf16(torch, np, ops, dev):
+    """``jamba_mid_config("bfloat16")`` on the card: a prefill of 2 x 100
+    tokens and 4 decode steps at per-row positions through the kernels,
+    against the same calls through the plain versions on the card with
+    each routing call pinned to the kernel pass's; every logit row within
+    5e-2 relative L2.  The prefill's flash launch takes mma_prefill at K=64
+    and its SSD scans mma.  Returns the kernel pass's launches."""
+    from repro_torch.models import Model
+
+    tol = 5e-2
+    cfg = jamba_mid_config("bfloat16")
+    model = Model(cfg)
+    params = model.init(torch.Generator(device=dev).manual_seed(20))
+    toks = torch.from_numpy(np.random.default_rng(21).integers(
+        0, cfg.vocab_size, (2, 104)).astype(np.int32)).to(dev)
+
+    def run():
+        cache = model.init_cache(2, 128)
+        outs = [model.prefill(params, {"tokens": toks[:, :100]}, cache)[0].float()]
+        for i in range(4):
+            pos = torch.tensor([100 + i, 100 + i], dtype=torch.int32, device=dev)
+            outs.append(model.decode_step(params, cache, toks[:, 100 + i : 101 + i], pos)[0].float())
+        return outs
+
+    ops.reset_launches()
+    with RouteLog() as rl:
+        got = run()
+    counts = _launch_counts(ops)
+    with PlainKernels(torch, ops), PinnedRouting() as pr:
+        pr.pins = [r.top_i for r in rl.records]
+        want = run()
+    worst = max(rel_rows(g, w, 2) for g, w in zip(got, want))
+    n_attn, n_mamba, norms = hybrid_layers(cfg)
+    launches = {k: v for k, v in counts.items() if v}
+    log(f"hybrid {cfg.name} mid width (d_model {cfg.d_model}, head_dim {cfg.head_dim}, ssm_state "
+        f"{cfg.ssm_state}, ssm_head_dim {cfg.ssm_head_dim}, chunk {cfg.ssm_chunk}, {cfg.n_layers} "
+        f"layers, moe_period {cfg.moe_period}), bf16: prefill 2 x 100 + 4 decode steps through "
+        f"the kernels against the plain versions on the card, worst logit row rel L2 {worst:.3e} "
+        f"(tol {tol}); {len(rl.records)} routing calls pinned to the kernel pass's, {pr.differ} "
+        f"token choices would differ; launches {launches}")
+    K = cfg.head_dim
+    assert launches == {"rmsnorm": 5 * norms, "flash_attention": 5 * n_attn, "ssd_scan": n_mamba,
+                        "flash/mma_prefill": n_attn, f"flash/mma_prefill K={K} causal": n_attn,
+                        "flash/decode": 4 * n_attn, f"flash/decode K={K} causal": 4 * n_attn,
+                        "ssd/mma": n_mamba}, launches
+    assert all(bool(torch.isfinite(g).all()) for g in got) and worst <= tol, worst
+    return counts
+
+
+def jamba_phase(torch, np, ops, dev):
+    """Phase 10c: the cut at full width, then the mid width in bf16 against
+    the plain versions on the card and in fp32 against the CPU.  Returns
+    each path's launches."""
+    counts = {f"{JAMBA}/cut": jamba_cut_phase(torch, np, ops, dev)}
+    counts[f"{JAMBA}/mid bf16"] = jamba_mid_bf16(torch, np, ops, dev)
+    cfg = jamba_mid_config("float32")
+    ops.reset_launches()
+    hybrid_against_cpu(torch, np, ops, cfg, 22,
+                       f"hybrid {cfg.name} mid width (d_model {cfg.d_model}, head_dim "
+                       f"{cfg.head_dim}, ssm_state {cfg.ssm_state}), fp32")
+    counts[f"{JAMBA}/mid fp32"] = _launch_counts(ops)
+    torch.cuda.empty_cache()
+    return counts
+
+
+# --------------------------------------------------------------------------
 # phase 11: the parallel and launch layer
 # --------------------------------------------------------------------------
 
 # The dry run of one shape per arch on the fake 16x16 mesh (all 32 cells
 # take about 160 s of host time: python -m repro_torch.launch.dryrun --all
-# writes them), and the two MoE prefills, whose dispatch slab is placed
-# over the mesh; every cell must fit one H100.
+# writes them), the two MoE prefills, whose dispatch slab is placed over the
+# mesh, and the two Mamba prefills, whose SSD scans run at the heads a device
+# holds; every cell must fit one H100, and every distinct kernel call they
+# hand a device is replayed on the card (replay_phase).
 DRYRUN_CELLS = (
     ("deepseek-7b", "decode_32k"), ("granite-34b", "decode_32k"),
     ("h2o-danube-3-4b", "long_500k"), ("hubert-xlarge", "prefill_32k"),
@@ -1989,6 +2286,7 @@ DRYRUN_CELLS = (
     ("mamba2-370m", "long_500k"), ("moonshot-v1-16b-a3b", "decode_32k"),
     ("qwen3-32b", "prefill_32k"), ("qwen3-moe-30b-a3b", "decode_32k"),
     ("qwen3-moe-30b-a3b", "prefill_32k"), ("moonshot-v1-16b-a3b", "prefill_32k"),
+    ("jamba-1.5-large-398b", "prefill_32k"), ("mamba2-370m", "prefill_32k"),
 )
 # The cells run on the card, on a (1, 1) mesh: (arch, shape, batch cut to
 # (None: not cut), layers cut to (None: not cut), opts, launches a step by
@@ -2028,11 +2326,13 @@ SEGMENT = 2 << 20  # the caching allocator's large segments are whole 2 MiB
 
 def dryrun_cells(torch):
     """The dry run of DRYRUN_CELLS, each on a fake group of 256 made and
-    destroyed by run_cell; one line each."""
+    destroyed by run_cell; one line each, and one for the distinct kernel
+    calls it hands a device.  Returns the cells' results."""
     import torch.distributed as dist
 
     from repro_torch.launch import dryrun
 
+    results = []
     for arch, shape in DRYRUN_CELLS:
         t0 = time.perf_counter()
         r = dryrun.run_cell(arch, shape, False, verbose=False)
@@ -2042,6 +2342,146 @@ def dryrun_cells(torch):
         log("dryrun: " + json.dumps({"cell": f"{arch} x {shape} x 16x16",
                                      "s": round(time.perf_counter() - t0, 1),
                                      **{k: r[k] for k in keys}}))
+        calls = r["kernel_call_shapes"]
+        for name, n in r["kernel_calls"].items():
+            assert sum(c["count"] for c in calls if c["kernel"] == name) == n, (arch, shape, name)
+        log(f"dryrun: {arch} x {shape}: {len(calls)} distinct kernel calls a device: "
+            + "; ".join(f"{c['count']} x {describe_call(c)}" for c in calls))
+        results.append(r)
+    return results
+
+
+def describe_call(call) -> str:
+    """One recorded kernel call (``cost.kernel_call``, or an entry of
+    ``dryrun.distinct_calls``) in a line."""
+    ins = call["inputs"]
+
+    def t(name):
+        return f"[{','.join(map(str, ins[name]['shape']))}] {ins[name]['dtype']}"
+
+    if call["kernel"] == "rmsnorm":
+        return f"rmsnorm x {t('x')}"
+    if call["kernel"] == "flash_attention":
+        return (f"flash_attention q {t('q')}, k {t('k')}, v {t('v')}, "
+                f"{'causal' if call['causal'] else 'non-causal'}"
+                + (f", window {call['window']}" if call["window"] is not None else "")
+                + (", q_pos shared" if call["q_pos_shared"] else ", q_pos per row")
+                + (f", decode at {call['decode_pos']}" if call.get("decode_pos") is not None else ""))
+    return (f"ssd_scan x {t('x')}, B {t('B')}, dt {t('dt')}, chunk {call['chunk']}, "
+            f"y {call['out_dtype']}" + (", init_state" if "init_state" in ins else ""))
+
+
+def replay_inputs(torch, call, gen, dev):
+    """Seeded inputs at the shapes and dtypes of one entry of
+    ``dryrun.distinct_calls``, as the kernel wrapper takes them (args,
+    kwargs).  Flash attention's positions: a decode step's query at its
+    ``decode_pos`` over a cache written as the dry run writes it
+    (``dryrun.ring_positions``: a ring of T slots holds the last T
+    positions, after its wrap); otherwise the queries are the last Sq of T
+    positions written in order."""
+    from repro_torch.launch import dryrun
+
+    ins = call["inputs"]
+    i32 = dict(dtype=torch.int32, device=dev)
+
+    def draw(name):
+        return torch.randn(ins[name]["shape"], generator=gen, device=dev).to(
+            getattr(torch, ins[name]["dtype"]))
+
+    if call["kernel"] == "rmsnorm":
+        return (draw("x"), draw("scale")), {"eps": call["eps"]}
+    if call["kernel"] == "flash_attention":
+        q, k, v = draw("q"), draw("k"), draw("v")
+        B, Sq, T = q.shape[0], q.shape[1], k.shape[1]
+        pos = call["decode_pos"]
+        if pos is not None:
+            kv_pos, q_pos = dryrun.ring_positions(T, pos, dev), torch.full((Sq,), pos, **i32)
+        else:
+            kv_pos, q_pos = torch.arange(T, **i32), torch.arange(T - Sq, T, **i32)
+        if not call["q_pos_shared"]:
+            q_pos = q_pos.expand(B, Sq).contiguous()
+        return (q, k, v, q_pos, kv_pos, call["causal"], call["window"]), {}
+    x, Bm, Cm = draw("x"), draw("B"), draw("C")
+    dt, A = ssd_dt_A(torch, ins["dt"]["shape"], gen, dev)
+    init = draw("init_state") if "init_state" in ins else None
+    return (x, dt, A, Bm, Cm, call["chunk"]), {
+        "init_state": init, "out_dtype": getattr(torch, call["out_dtype"])}
+
+
+def replay_phase(torch, ops, timer, dev, results):
+    """Every distinct local kernel call of the dry-run cells (``results``,
+    from ``dryrun_cells``, merged by ``dryrun.distinct_calls``) launched on
+    the card at its recorded shapes and dtypes (``replay_inputs``) and held
+    against its plain version on the same inputs: each output's worst row
+    relative L2 within PLAIN_TOL; the route it took, read from the launch
+    counters; its ms and bound (``rmsnorm_bound``, ``flash_bound``,
+    ``ssd_bound``); one JSON line a call, then a summary by kernel and
+    route.  Every kernel must be replayed.  Returns the checked launches
+    (one a call; the timed ones are not counted) and the summary."""
+    from repro_torch.launch import dryrun
+
+    plain = plain_versions(torch)
+    wrapper = {"rmsnorm": ops.rmsnorm, "flash_attention": ops.flash_attention,
+               "ssd_scan": ops.ssd_scan}
+    prefix = {"rmsnorm": "rmsnorm/", "flash_attention": "flash/", "ssd_scan": "ssd/"}
+    keep = CallsAgainstPlain.KEEP
+
+    def counts():
+        return {**_launch_counts(ops), **{f"rmsnorm/{r}": n for r, n in ops.RMSNORM_ROUTES.items()}}
+
+    gen = torch.Generator(device=dev).manual_seed(23)
+    launched, rows = {}, []
+    for call in dryrun.distinct_calls(results):
+        name = call["kernel"]
+        args, kwargs = replay_inputs(torch, call, gen, dev)
+        before = counts()
+        got = wrapper[name](*args, **kwargs)
+        torch.cuda.synchronize()
+        diff = _diff(counts(), before)
+        for k, v in diff.items():
+            if not k.startswith("rmsnorm/"):
+                launched[k] = launched.get(k, 0) + v
+        took = {k: v for k, v in diff.items() if v}
+        routes = [k[len(prefix[name]):] for k in took if k.startswith(prefix[name]) and " K=" not in k]
+        assert len(routes) == 1 and {k: v for k, v in took.items() if " K=" not in k} == {
+            name: 1, prefix[name] + routes[0]: 1}, (describe_call(call), took)
+        with torch.no_grad():
+            want = plain[name](*args, **kwargs)
+        outs, wants = (got, want) if isinstance(got, tuple) else ((got,), (want,))
+        err = max(rel_rows(o, w, keep[name] % o.ndim) for o, w in zip(outs, wants))
+        del got, want, outs, wants
+        if name == "rmsnorm":
+            b_ms, b_by = rmsnorm_bound(args[0])
+        elif name == "flash_attention":
+            b_ms, b_by = flash_bound(torch, args[0], args[1], *args[3:])
+        else:
+            b_ms, b_by = ssd_bound(torch, args[0], args[3], args[5], **kwargs)
+        row = {"call": describe_call(call), "cells": call["cells"], "route": routes[0],
+               "dry_run_calls": call["count"], "worst_row_rel_l2": err, "tol": PLAIN_TOL,
+               "ms": timer.ms(lambda: wrapper[name](*args, **kwargs)),
+               "bound_ms": b_ms, "bound_by": b_by}
+        rows.append(row)
+        log("replay: " + json.dumps(row))
+        assert err <= PLAIN_TOL, row
+        del args, kwargs
+        torch.cuda.empty_cache()
+    summary = {}
+    for name in wrapper:
+        mine = [r for r in rows if r["call"].startswith(name)]
+        assert mine, f"no dry-run call of {name} was replayed"
+        by_route = {}
+        for route in sorted({r["route"] for r in mine}):
+            these = [r for r in mine if r["route"] == route]
+            slowest = max(these, key=lambda r: r["ms"])
+            by_route[route] = {"calls": len(these),
+                               "worst_row_rel_l2": max(r["worst_row_rel_l2"] for r in these),
+                               "slowest": {k: slowest[k] for k in ("call", "ms", "bound_ms")}}
+        summary[name] = {"calls": len(mine), "by_route": by_route,
+                         "worst_row_rel_l2": max(r["worst_row_rel_l2"] for r in mine)}
+    log(f"replay: {len(rows)} distinct local kernel calls of {len(results)} dry-run cells on the "
+        f"16x16 mesh launched on the card, each within {PLAIN_TOL} of its plain version: by kernel "
+        f"and route {json.dumps(summary)}")
+    return launched, summary
 
 
 class CallsAgainstPlain:
@@ -2054,22 +2494,8 @@ class CallsAgainstPlain:
     KEEP = {"rmsnorm": -1, "flash_attention": 2, "ssd_scan": 2}  # row dims, per output
 
     def __init__(self, torch, ops):
-        from repro_torch.kernels import ref
-
-        def ssd_plain(x, dt, A, Bm, Cm, chunk, init_state=None, out_dtype=torch.float32):
-            y, state = ref.ssd_chunked_ref(x, dt, A, Bm, Cm, chunk, init_state)
-            return y.to(out_dtype), state
-
-        def flash_plain(q, k, v, q_pos, kv_pos, causal=True, window=None):
-            B, Sq, H, _ = q.shape
-            rows = max(1, FLASH_PLAIN_BYTES // (B * H * k.shape[1] * 4))
-            return torch.cat([ref.flash_attention_ref(q[:, i:i + rows], k, v, q_pos[..., i:i + rows],
-                                                      kv_pos, causal, window)
-                              for i in range(0, Sq, rows)], dim=1)
-
         self.torch, self.ops = torch, ops
-        self.plain = {"rmsnorm": ref.rmsnorm_ref, "flash_attention": flash_plain,
-                      "ssd_scan": ssd_plain}
+        self.plain = plain_versions(torch)
         self.worst = {name: 0.0 for name in self.plain}
         self.calls = {name: 0 for name in self.plain}
 
@@ -2126,6 +2552,7 @@ def card_cell(torch, ops, dev, mesh, arch, shape, batch, layers, opts, per_step,
     from repro_torch.parallel import opt_flags
     from repro_torch.tree import leaves
 
+    t_cell = time.perf_counter()
     cfg = get_config(arch) if layers is None else dataclasses.replace(get_config(arch), n_layers=layers)
     cell = SHAPES[shape] if batch is None else dataclasses.replace(SHAPES[shape], global_batch=batch)
     meta = Model(cfg, device="meta")
@@ -2215,7 +2642,7 @@ def card_cell(torch, ops, dev, mesh, arch, shape, batch, layers, opts, per_step,
         "step_ms": step_ms, "step_ms_all": [ms for ms, _ in records],
         "step_over_roofline": step_ms / max(t_flops, t_bytes),
         "launches_per_step": {k: v for k, v in records[-1][1].items() if v},
-        "predict_s": round(predict_s, 1),
+        "predict_s": round(predict_s, 1), "s": round(time.perf_counter() - t_cell, 1),
     }
     log("parallel: " + json.dumps(row))
     assert PEAK_BAND[0] <= ratio <= PEAK_BAND[1], (arch, shape, ratio)
@@ -2264,19 +2691,26 @@ def moe_placed_against_plain(torch, cfg, cell, state, mesh, dev):
         del y, aux, want_y, want_aux
 
 
-def parallel_phase(torch, ops, dev):
-    """Phase 11: the dry run on the fake 16x16 mesh, then CARD_CELLS on a
+def parallel_phase(torch, ops, timer, dev, card_cells=True):
+    """Phase 11: the dry run on the fake 16x16 mesh and the replay of its
+    kernel calls on the card, then (``card_cells``) CARD_CELLS on a
     one-rank NCCL group (a FileStore: no network) and a (1, 1) cuda mesh.
-    Returns each card cell's launches."""
+    Returns the replay's and each card cell's launches, and the replay's
+    summary."""
     import tempfile
 
     import torch.distributed as dist
     from torch.distributed.device_mesh import init_device_mesh
 
     t0 = time.perf_counter()
-    dryrun_cells(torch)
+    results = dryrun_cells(torch)
     log(f"parallel: dry run of {len(DRYRUN_CELLS)} cells in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
     launches = {}
+    launches["parallel/replay"], summary = replay_phase(torch, ops, timer, dev, results)
+    log(f"parallel: replay in {time.perf_counter() - t0:.1f} s")
+    if not card_cells:
+        return launches, summary
     with tempfile.TemporaryDirectory() as tmp:
         dist.init_process_group("nccl", store=dist.FileStore(f"{tmp}/store", 1),
                                 rank=0, world_size=1, device_id=dev)
@@ -2294,7 +2728,7 @@ def parallel_phase(torch, ops, dev):
                     torch, ops, dev, mesh, arch, shape, batch, layers, opts, per_step, note)
         finally:
             dist.destroy_process_group()
-    return launches
+    return launches, summary
 
 
 # --------------------------------------------------------------------------
@@ -2449,10 +2883,11 @@ def sched_phase(card, curves):
             f"{default['train_interference']} on the default curve; {card}")
 
 
-def kernels_line(results, path_launches, ops):
+def kernels_line(results, path_launches, ops, replayed):
     """The ``kernels`` line: one entry per kernel, at its main-path case,
     with its launches summed over the main paths' runs (``path_launches``:
-    each path's ``_launch_counts``), by path, by route and by flash shape."""
+    each path's ``_launch_counts``), by path, by route and by flash shape,
+    and the summary of its replayed dry-run calls (``replayed``)."""
     total = {}
     for counts in path_launches.values():
         for k, v in counts.items():
@@ -2479,6 +2914,7 @@ def kernels_line(results, path_launches, ops):
             **({"launches_by_flash_route": flash_routes,
                 "launches_by_flash_shape": flash_shapes} if name == "flash_attention" else {}),
             **({"launches_by_ssd_route": ssd_routes} if name == "ssd_scan" else {}),
+            replayed_dry_run_calls=replayed[name],
             max_abs_err=max(r["max_abs_err"] for r in mine),
             ms=rep["ms"], plain_ms=rep["plain_ms"], bound_ms=rep["bound_ms"],
             bound_by=rep["bound_by"], library_ms=rep["library_ms"], case=rep["case"],
@@ -2494,15 +2930,16 @@ def parse_args(argv):
 
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--only", default="",
-                    help="comma list of rmsnorm, flash, ssd, prefill_profile, parallel, sched: "
-                         "run the device and build phases and these, then stop (to time another "
-                         "tree's kernels beside this one's in one chip call, or phase 11 or 12 "
-                         "alone)")
+                    help="comma list of rmsnorm, flash, ssd, prefill_profile, jamba, replay, "
+                         "parallel, sched: run the device and build phases and these, then stop "
+                         "(to time another tree's kernels beside this one's in one chip call, or "
+                         "phase 10c, phase 11's dry run and replay, phase 11 or phase 12 alone)")
     ap.add_argument("--src", type=Path, default=ROOT,
                     help="root of the checkout whose src/repro_torch is run (default: this one)")
     args = ap.parse_args(argv)
     args.only = [p for p in args.only.split(",") if p]
-    unknown = set(args.only) - {"rmsnorm", "flash", "ssd", "prefill_profile", "parallel", "sched"}
+    unknown = set(args.only) - {"rmsnorm", "flash", "ssd", "prefill_profile", "jamba", "replay",
+                                "parallel", "sched"}
     if unknown:
         ap.error(f"unknown phases {sorted(unknown)}")
     return args
@@ -2558,8 +2995,10 @@ def main(argv=None) -> int:
         if "prefill_profile" in args.only:
             cfg = get_config("mamba2-370m")
             profile_prefill(torch, np, cfg, init_params(torch, Model, cfg, dev))
-        if "parallel" in args.only:
-            parallel_phase(torch, ops, dev)
+        if "jamba" in args.only:
+            jamba_phase(torch, np, ops, dev)
+        if "replay" in args.only or "parallel" in args.only:
+            parallel_phase(torch, ops, timer, dev, card_cells="parallel" in args.only)
         if "sched" in args.only:
             cfg = get_config("deepseek-7b")
             curves = {cfg.name: calibrate_phase(cfg, init_params(torch, Model, cfg, dev), card)}
@@ -2656,15 +3095,22 @@ def main(argv=None) -> int:
     path_launches.update(dense_giants_phase(torch, np, ops, dev))
 
     lap("10b")
-    # 11. the parallel and launch layer: the dry run, and its cells on the card
-    path_launches.update(parallel_phase(torch, ops, dev))
+    # 10c. jamba-1.5-large-398b at its own widths, cut to one super-block, and
+    # at a mid width in bf16 and fp32
+    path_launches.update(jamba_phase(torch, np, ops, dev))
+
+    lap("10c")
+    # 11. the parallel and launch layer: the dry run, the replay of its kernel
+    # calls, and its cells on the card
+    parallel_launches, replayed = parallel_phase(torch, ops, timer, dev)
+    path_launches.update(parallel_launches)
 
     lap("11")
     # 12. the scheduler on the default curve, then on the curves of phases 6 and 8
     sched_phase(card, curves)
 
     lap("12")
-    line = kernels_line(results, path_launches, ops)
+    line = kernels_line(results, path_launches, ops, replayed)
     log(f"total: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": line}))
     print(json.dumps({"ok": True, "device": {

@@ -9,7 +9,9 @@
 // rows <= 128) one launch moves well under a megabyte and is bound by the
 // launch itself.
 //
-// Two kernels, chosen in rmsnorm_fwd by a plain rule on D and alignment:
+// Two kernels; the caller names the one to run (ops._rmsnorm_route, by a
+// plain rule on D and alignment), and rmsnorm_fwd refuses a row-kernel call
+// it cannot serve:
 //
 // rmsnorm_row_kernel, for the widths the port runs (128: qk-norm; 1024
 // and 2048: mamba2-370m's d_model and gated norm; 4096: deepseek-7b) with
@@ -236,28 +238,33 @@ bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0;
 
 template <typename T>
 int run(const void* x, const float* scale, void* y, int64_t rows, int D, float eps,
-        cudaStream_t stream) {
-  int err = 0;
-  if (aligned16(x) && aligned16(y) && aligned16(scale) &&
-      launch_fast<T>(x, scale, y, rows, D, eps, stream, &err)) {
-    return err;
+        int route, cudaStream_t stream) {
+  if (route == 1) {  // the row kernel, or nothing
+    int err = 0;
+    if (aligned16(x) && aligned16(y) && aligned16(scale) &&
+        launch_fast<T>(x, scale, y, rows, D, eps, stream, &err)) {
+      return err;
+    }
+    return (int)cudaErrorInvalidValue;
   }
+  if (route != 0) return (int)cudaErrorInvalidValue;
   launch<T>(x, scale, y, rows, D, eps, stream);
   return int(cudaGetLastError());
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16.  The row kernel takes D in {128, 1024,
-// 2048, 4096} with x, y and scale 16-byte aligned; every other call runs
-// the general kernel.  Returns cudaGetLastError() after the launch (0 on
-// success); the Python wrapper raises on anything else.
+// dtype: 0 = float32, 1 = bfloat16.  route: 0 = the general kernel, any D;
+// 1 = the row kernel, which takes D in {128, 1024, 2048, 4096} with x, y
+// and scale 16-byte aligned (any other call on it is refused).  Returns
+// cudaGetLastError() after the launch (0 on success); the Python wrapper
+// raises on anything else.
 extern "C" int rmsnorm_fwd(const void* x, const float* scale, void* y,
-                           int64_t rows, int D, float eps, int dtype,
+                           int64_t rows, int D, float eps, int dtype, int route,
                            void* stream) {
   if (rows <= 0 || rows > 2147483647LL || D <= 0) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return run<float>(x, scale, y, rows, D, eps, s);
-  if (dtype == 1) return run<__nv_bfloat16>(x, scale, y, rows, D, eps, s);
+  if (dtype == 0) return run<float>(x, scale, y, rows, D, eps, route, s);
+  if (dtype == 1) return run<__nv_bfloat16>(x, scale, y, rows, D, eps, route, s);
   return (int)cudaErrorInvalidValue;
 }

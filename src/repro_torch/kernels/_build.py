@@ -27,8 +27,8 @@ _P, _I, _I64, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.c_float
 # C signature of every kernel entry point: (argtypes), returning the
 # cudaError_t of the launch as an int.
 SIGNATURES = {
-    # x, scale, y, rows, D, eps, dtype, stream
-    "rmsnorm_fwd": (_P, _P, _P, _I64, _I, _F, _I, _P),
+    # x, scale, y, rows, D, eps, dtype, route, stream
+    "rmsnorm_fwd": (_P, _P, _P, _I64, _I, _F, _I, _I, _P),
     # q, k, v, q_pos, q_pos_bstride, kv_pos, out, B, Sq, T, H, G, K,
     # causal, has_window, window, dtype, route, stream
     "flash_attention_fwd": (_P, _P, _P, _P, _I64, _P, _P) + (_I,) * 11 + (_P,),

@@ -18,8 +18,9 @@ show that its main path went through the kernels (a block recomputed by
 ``FLASH_SHAPES`` splits the flash-attention launches by the kernel each
 call ran (``_flash_route``), head dim and mask, e.g. ``"mma_prefill K=80
 non-causal"`` or ``"decode K=120 causal window"``; ``FLASH_ROUTES`` is its
-read-only sum by route.  ``SSD_ROUTES`` splits the SSD-scan launches by
-route (``_ssd_route``).  ``DTENSOR_CALLS`` counts the calls that came as
+read-only sum by route.  ``RMSNORM_ROUTES`` and ``SSD_ROUTES`` split the
+RMSNorm and SSD-scan launches by route (``_rmsnorm_route``,
+``_ssd_route``).  ``DTENSOR_CALLS`` counts the calls that came as
 DTensors (below), so that a run can show its launches all came that way.
 
 Two more kinds of tensor reach the wrappers, and neither touches the path
@@ -29,7 +30,9 @@ of a plain CUDA tensor:
   path up to the launch: the same autograd Function, the same checks and
   outputs (and the SSD scan's workspace), then launch nothing and count
   nothing.  Each such call is reported to the callbacks in
-  ``META_OBSERVERS`` (``launch/cost.py`` prices it).
+  ``META_OBSERVERS`` with its tensors and its other arguments (mask,
+  window, chunk, output type, eps): ``launch/cost.py`` prices it and keeps
+  its shapes.
 * **DTensors** run the wrapper on each rank's local shard through
   ``local_map``, with the placements the kernel allows: RMSNorm any that
   does not split the normalised axis; flash attention batch or heads
@@ -78,6 +81,9 @@ class _FlashRoutes(Mapping):
 
 FLASH_ROUTES = _FlashRoutes()
 SSD_ROUTES: Dict[str, int] = {"mma": 0, "fma": 0}
+RMSNORM_ROUTES: Dict[str, int] = {"row": 0, "general": 0}
+_RMSNORM_ROUTE_CODES = {"general": 0, "row": 1}  # csrc/rmsnorm.cu
+_RMSNORM_ROW_DIMS = (128, 1024, 2048, 4096)  # the widths of the row kernel
 _SSD_ROUTE_CODES = {"fma": 0, "mma": 1}  # csrc/ssd_scan.cu
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
@@ -87,12 +93,14 @@ _HEAD_DIMS = (16, 64, 80, 120, 128)
 _SSD_SIZES = (16, 32, 64, 128)  # the SSD kernel's P, N and chunk
 _SSD_MMA_SIZES = (64, 128)  # N and chunk of the SSD scan's tensor-core route
 
-# callbacks (name, inputs, outputs) of every wrapper call on meta tensors
-META_OBSERVERS: List[Callable[[str, Dict[str, torch.Tensor], Tuple[torch.Tensor, ...]], None]] = []
+# callbacks (name, inputs, outputs, other arguments) of every wrapper call
+# on meta tensors
+META_OBSERVERS: List[Callable[[str, Dict[str, torch.Tensor], Tuple[torch.Tensor, ...],
+                               Dict[str, object]], None]] = []
 
 
 def reset_launches() -> None:
-    for counts in (LAUNCHES, DTENSOR_CALLS, SSD_ROUTES):
+    for counts in (LAUNCHES, DTENSOR_CALLS, SSD_ROUTES, RMSNORM_ROUTES):
         for name in counts:
             counts[name] = 0
     FLASH_SHAPES.clear()
@@ -113,12 +121,14 @@ def _on_cpu(*tensors: torch.Tensor) -> bool:
     )
 
 
-def _on_meta(name: str, inputs: Dict[str, Optional[torch.Tensor]], *outs: torch.Tensor):
-    """The end of a wrapper's card path on meta tensors: report the call to
-    ``META_OBSERVERS`` and return the outputs unlaunched, uncounted."""
+def _on_meta(name: str, inputs: Dict[str, Optional[torch.Tensor]], *outs: torch.Tensor,
+             attrs: Dict[str, object]):
+    """The end of a wrapper's card path on meta tensors: report the call
+    (its tensors and ``attrs``, its other arguments) to ``META_OBSERVERS``
+    and return the outputs unlaunched, uncounted."""
     given = {k: t for k, t in inputs.items() if t is not None}
     for observe in META_OBSERVERS:
-        observe(name, given, outs)
+        observe(name, given, outs, attrs)
     return outs[0] if len(outs) == 1 else outs
 
 
@@ -272,13 +282,25 @@ def _rmsnorm_kernel(x: torch.Tensor, scale: torch.Tensor, eps: float) -> torch.T
     if rows == 0:
         return out
     if x.is_meta:
-        return _on_meta("rmsnorm", {"x": x, "scale": scale}, out)
+        return _on_meta("rmsnorm", {"x": x, "scale": scale}, out, attrs={"eps": eps})
+    route = _rmsnorm_route(D, x, scale, out)
     err = _build.load().rmsnorm_fwd(
         x.data_ptr(), scale.data_ptr(), out.data_ptr(), rows, D, eps, code,
-        _stream(x),
+        _RMSNORM_ROUTE_CODES[route], _stream(x),
     )
     _check_launch("rmsnorm", err)
+    RMSNORM_ROUTES[route] += 1
     return out
+
+
+def _rmsnorm_route(D: int, *tensors: torch.Tensor) -> str:
+    """The RMSNorm kernel a call on the card runs: ``row`` (a row held in
+    registers, several rows a block) for D in ``_RMSNORM_ROW_DIMS`` with
+    x, scale and y 16-byte aligned; ``general`` (a block a row) for any
+    other call."""
+    if D in _RMSNORM_ROW_DIMS and all(t.data_ptr() % 16 == 0 for t in tensors):
+        return "row"
+    return "general"
 
 
 def _flash_route(Sq: int, dtype: torch.dtype) -> str:
@@ -436,7 +458,8 @@ def _flash_attention_kernel(q, k, v, q_pos, kv_pos, causal, window) -> torch.Ten
         return out
     if q.is_meta:
         return _on_meta("flash_attention", {"q": q, "k": k, "v": v, "q_pos": q_pos,
-                                            "kv_pos": kv_pos}, out)
+                                            "kv_pos": kv_pos}, out,
+                        attrs={"causal": bool(causal), "window": window})
     route = _flash_route(Sq, q.dtype)
     err = _build.load().flash_attention_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), q_pos.data_ptr(),
@@ -624,7 +647,8 @@ def _ssd_scan_kernel(x, dt, A, Bm, Cm, chunk, init_state, out_dtype):
                          dtype=torch.uint8, device=x.device)
     if x.is_meta:
         return _on_meta("ssd_scan", {"x": x, "dt": dt, "A": A, "B": Bm, "C": Cm,
-                                     "init_state": init_state}, y, state)
+                                     "init_state": init_state}, y, state,
+                        attrs={"chunk": chunk, "out_dtype": str(out_dtype).split(".")[-1]})
     err = _build.load().ssd_scan_fwd(
         x.data_ptr(), x.stride(0), x.stride(1), dt.data_ptr(), A.data_ptr(),
         Bm.data_ptr(), Bm.stride(0), Bm.stride(1),

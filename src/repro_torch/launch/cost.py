@@ -20,6 +20,10 @@ runs for them, and counts per device:
   the kernels' by their inputs and outputs;
 * collective bytes, by kind as ``analysis.COLLECTIVE_OPS`` names them:
   the result bytes of each functional collective;
+* kernel calls: how many times each hand-written kernel is called
+  (``kernel_calls``) and each distinct call as one device gets it
+  (``call_records``): every input's local shape and dtype and the call's
+  other arguments, with its count;
 * live memory: every storage an op makes, from its creation until it
   is freed, each rounded up to the 512 bytes the CUDA caching allocator
   rounds a block to, on top of the storages registered as the state
@@ -34,6 +38,7 @@ the live storages grouped by the op and line that made each.
 """
 from __future__ import annotations
 
+import json
 import traceback
 import weakref
 from collections import defaultdict
@@ -98,6 +103,19 @@ def kernel_flops(name: str, inputs: Dict[str, torch.Tensor]) -> int:
     raise KeyError(name)
 
 
+def kernel_call(name: str, inputs: Dict[str, torch.Tensor], attrs: Dict[str, Any]) -> Dict[str, Any]:
+    """One kernel call as a device gets it: the kernel, each input's local
+    shape and dtype, and the call's other arguments (``attrs``: causal and
+    window, chunk and output type, eps); for flash attention also whether
+    one ``q_pos`` row is shared by the whole batch."""
+    rec: Dict[str, Any] = {"kernel": name, "inputs": {
+        k: {"shape": list(t.shape), "dtype": str(t.dtype).split(".")[-1]} for k, t in inputs.items()}}
+    rec.update(attrs)
+    if name == "flash_attention":
+        rec["q_pos_shared"] = inputs["q_pos"].ndim == 1
+    return rec
+
+
 def _origin() -> str:
     """The innermost frame of the port's model code on the stack (for a
     kernel, the line that called its wrapper)."""
@@ -115,12 +133,10 @@ def _storage_key(t: torch.Tensor) -> Tuple[int, int]:
 
 class CostMode(TorchDispatchMode):
     """Counts one step's per-device cost; see the module docstring.
-    ``chunk`` is the SSD scan's chunk (the config's ``ssm_chunk``);
     ``by_op`` keeps the cost by op (``by_op_report``)."""
 
-    def __init__(self, chunk: int = 0, by_op: bool = False):
+    def __init__(self, by_op: bool = False):
         super().__init__()
-        self.chunk = chunk
         self.by_op = by_op
         self._flops_by_op: Dict[str, float] = defaultdict(float)
         self._made: Dict[int, str] = {}  # storage -> "op @ line shape dtype"
@@ -130,6 +146,7 @@ class CostMode(TorchDispatchMode):
         self.bytes = 0.0
         self.coll: Dict[str, float] = {k: 0.0 for k in COLLECTIVE_OPS}
         self.kernel_calls: Dict[str, int] = {}
+        self._call_counts: Dict[str, int] = {}  # kernel_call as JSON -> calls
         self._live: Dict[int, int] = {}
         self.live_bytes = 0
         self.peak_bytes = 0
@@ -189,18 +206,25 @@ class CostMode(TorchDispatchMode):
         ops.META_OBSERVERS.remove(self._kernel)
         return super().__exit__(*exc)
 
-    def _kernel(self, name: str, inputs: Dict[str, torch.Tensor], outs) -> None:
+    def _kernel(self, name: str, inputs: Dict[str, torch.Tensor], outs, attrs) -> None:
         before = self.flops
         if name == "ssd_scan":
             x, Bm = inputs["x"], inputs["B"]
             B, S, H, P = x.shape
-            self.flops += ssd_flops(B, S, H, P, Bm.shape[-1], self.chunk)
+            self.flops += ssd_flops(B, S, H, P, Bm.shape[-1], attrs["chunk"])
         else:
             self.flops += kernel_flops(name, inputs)
         if self.by_op:
             self._flops_by_op[f"kernel {name} @ {_origin()}"] += self.flops - before
         self.bytes += sum(t.nbytes for t in (*inputs.values(), *outs))
         self.kernel_calls[name] = self.kernel_calls.get(name, 0) + 1
+        key = json.dumps(kernel_call(name, inputs, attrs), sort_keys=True)
+        self._call_counts[key] = self._call_counts.get(key, 0) + 1
+
+    def call_records(self) -> List[Dict[str, Any]]:
+        """Each distinct kernel call (``kernel_call``) with its ``count``,
+        in the order of first call."""
+        return [{**json.loads(key), "count": n} for key, n in self._call_counts.items()]
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         if any(issubclass(t, DTensor) for t in types):

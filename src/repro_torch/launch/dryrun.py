@@ -9,7 +9,8 @@ Per cell this module:
      and no collective moves a byte;
   2. runs one train, prefill or decode step of the port's own code under
      ``cost.CostMode``, which counts per device the FLOPs, the bytes, the
-     collective bytes by kind and the peak of live memory;
+     collective bytes by kind and the peak of live memory, and keeps each
+     distinct kernel call at its local shapes (``kernel_call_shapes``);
   3. returns the reference's roofline terms (``analysis.RooflineTerms``)
      and ``fits_h100``: the per-device peak within 80 GB.
 
@@ -20,6 +21,8 @@ Usage:
   python -m repro_torch.launch.dryrun --arch deepseek-7b --shape train_4k \\
       [--multi-pod] [--out results/dryrun_torch/cell.json]
   python -m repro_torch.launch.dryrun --all [--multi-pod]
+  python -m repro_torch.launch.dryrun --calls-of results/dryrun_torch
+      # each distinct kernel call a device gets, over the cells written there
   python -m repro_torch.launch.dryrun --arch jamba-1.5-large-398b \\
       --shape train_4k --by-op 12   # where its FLOPs and its peak come from
 """
@@ -80,16 +83,22 @@ def input_specs(cfg: ArchConfig, cell: ShapeCell, device="meta", generator=None)
     return {"tokens": ints(B, S), "labels": ints(B, S)}
 
 
+def ring_positions(W: int, pos: int, device=None) -> torch.Tensor:
+    """The positions a cache of ``W`` slots holds at decode position ``pos``
+    after ``pos`` earlier tokens: slot j the latest position <= pos that
+    the (ring) buffer keeps there."""
+    j = torch.arange(W, dtype=torch.int32, device=device)
+    return pos - torch.remainder(pos - j, W)
+
+
 def fill_positions(cache: Dict[str, Any], pos: int) -> None:
     """Mark every slot of every attention cache written, as at decode
-    position ``pos`` after ``pos`` earlier tokens: slot j holds the latest
-    position <= pos that the (ring) buffer keeps there, so a decode step
-    reads every slot."""
+    position ``pos`` (``ring_positions``), so a decode step reads every
+    slot."""
     for sub in cache.values():
         if "pos" in sub:
             W = sub["pos"].shape[-1]
-            j = torch.arange(W, dtype=torch.int32, device=sub["pos"].device)
-            sub["pos"].copy_((pos - torch.remainder(pos - j, W)).expand_as(sub["pos"]))
+            sub["pos"].copy_(ring_positions(W, pos, sub["pos"].device).expand_as(sub["pos"]))
 
 
 def build_state(model: Model, cell: ShapeCell, mesh, generator=None) -> Dict[str, Any]:
@@ -163,7 +172,7 @@ def measure(model: Model, cell: ShapeCell, mesh, by_op: bool = False) -> Dict[st
     by op kept) after the step, the state's bytes, and the state's bytes
     as the allocator rounds them."""
     state = build_state(model, cell, mesh)
-    mode = cost.CostMode(chunk=model.cfg.ssm_chunk, by_op=by_op)
+    mode = cost.CostMode(by_op=by_op)
     allocated = mode.track(state)
     with mode:
         run_step(model, cell, state)
@@ -229,6 +238,7 @@ def run_cell(
         "state_bytes": got["state_bytes"],
         "state_allocated_bytes": got["state_allocated_bytes"],
         "kernel_calls": mode.kernel_calls,
+        "kernel_call_shapes": mode.call_records(),
         **terms.to_dict(),
     }
     if by_op:
@@ -236,6 +246,27 @@ def run_cell(
     if verbose:
         print(json.dumps(result, indent=2, default=str))
     return result
+
+
+def distinct_calls(results) -> list:
+    """Each distinct kernel call (``cost.kernel_call``) of the cells whose
+    ``run_cell`` results are ``results`` (a failed cell adds none), with
+    the cells that make it (arch x shape) and its calls a step over them
+    all, sorted by kernel.  A flash-attention call also carries the
+    positions its cell gives it: ``decode_pos``, the query's position over
+    a cache written as ``fill_positions`` writes it, for a decode step, and
+    None for a prefill's or train step's positions in order."""
+    seen: Dict[str, Dict[str, Any]] = {}
+    for res in results:
+        for call in res.get("kernel_call_shapes", []):
+            rec = {k: v for k, v in call.items() if k != "count"}
+            if rec["kernel"] == "flash_attention":
+                cell = SHAPES[res["shape"]]
+                rec["decode_pos"] = cell.seq_len - 1 if cell.kind == "decode" else None
+            entry = seen.setdefault(json.dumps(rec, sort_keys=True), {**rec, "cells": [], "count": 0})
+            entry["cells"].append(f"{res['arch']} x {res['shape']}")
+            entry["count"] += call["count"]
+    return sorted(seen.values(), key=lambda c: c["kernel"])
 
 
 def main() -> None:
@@ -247,11 +278,22 @@ def main() -> None:
     ap.add_argument("--out", default=None)
     ap.add_argument("--skip-existing", action="store_true")
     ap.add_argument("--opt", default="", help="comma-separated optimizations (e.g. sp)")
+    ap.add_argument("--calls-of", default=None, metavar="DIR",
+                    help="print each distinct kernel call a device gets over the cells that "
+                         "--all wrote into DIR, one JSON line each, and stop")
     ap.add_argument("--by-op", type=int, default=0, metavar="N",
                     help="one cell: add its N ops with the most FLOPs and the N largest "
                          "groups of storages live at its peak, each with the op and line that made it")
     args = ap.parse_args()
     opts = tuple(o for o in args.opt.split(",") if o)
+
+    if args.calls_of:
+        calls = distinct_calls(json.loads(path.read_text())
+                               for path in sorted(Path(args.calls_of).glob("*__*__*.json")))
+        for call in calls:
+            print(json.dumps(call, sort_keys=True))
+        print(f"{len(calls)} distinct kernel calls")
+        return
 
     if args.all:
         outdir = Path(args.out or "results/dryrun_torch")

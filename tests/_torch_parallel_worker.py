@@ -10,6 +10,7 @@ seed, alike on every rank.
 """
 from __future__ import annotations
 
+import json
 import sys
 from contextlib import contextmanager
 from datetime import timedelta
@@ -22,6 +23,7 @@ import torch.multiprocessing as mp
 from torch.distributed.tensor import DTensor
 
 from repro_torch.configs import reduced_config
+from repro_torch.configs.base import ShapeCell
 from repro_torch.launch.mesh import make_debug_mesh
 from repro_torch.models import Model
 from repro_torch.models import moe as TX
@@ -375,9 +377,91 @@ def run_wrappers(rank: int, out: Path) -> None:
         (out / "wrappers_raised.txt").write_text("\n".join(raised))
 
 
+# the cells whose kernel calls the 2x2 run records (reduced jamba, one
+# super-block: attention, Mamba and MoE), and the config's overrides
+CALL_ARCH = ("jamba-1.5-large-398b", {"n_layers": 8})
+CALL_CELLS = {"prefill": ShapeCell("prefill_32", 32, 4, "prefill"),
+              "decode": ShapeCell("decode_32", 32, 4, "decode"),
+              "train": ShapeCell("train_32", 32, 4, "train")}
+
+
+@contextmanager
+def local_calls():
+    """Every kernel wrapper call that comes as plain tensors while the
+    block runs (on DTensors: each rank's local shard, inside local_map),
+    recorded as ``cost.kernel_call`` records it on the meta device: {JSON
+    of the call: count}, filled in."""
+    import inspect
+
+    from repro_torch.kernels import ops
+    from repro_torch.launch.cost import kernel_call
+
+    seen = {}
+
+    def record(name, args):
+        if name == "rmsnorm":
+            ins, attrs = {"x": args["x"], "scale": args["scale"]}, {"eps": args["eps"]}
+        elif name == "flash_attention":
+            ins = {k: args[k] for k in ("q", "k", "v", "q_pos", "kv_pos")}
+            attrs = {"causal": bool(args["causal"]), "window": args["window"]}
+        else:
+            ins = {"x": args["x"], "dt": args["dt"], "A": args["A"], "B": args["Bm"], "C": args["Cm"]}
+            if args["init_state"] is not None:
+                ins["init_state"] = args["init_state"]
+            out_dtype = args["out_dtype"] or args["x"].dtype
+            attrs = {"chunk": args["chunk"], "out_dtype": str(out_dtype).split(".")[-1]}
+        key = json.dumps(kernel_call(name, ins, attrs), sort_keys=True)
+        seen[key] = seen.get(key, 0) + 1
+
+    def wrap(name, fn):
+        sig = inspect.signature(fn)
+
+        def call(*args, **kwargs):
+            bound = sig.bind(*args, **kwargs)
+            bound.apply_defaults()
+            if not isinstance(args[0], DTensor):
+                record(name, bound.arguments)
+            return fn(*args, **kwargs)
+
+        return call
+
+    saved = {name: getattr(ops, name) for name in ("rmsnorm", "flash_attention", "ssd_scan")}
+    for name, fn in saved.items():
+        setattr(ops, name, wrap(name, fn))
+    try:
+        yield seen
+    finally:
+        for name, fn in saved.items():
+            setattr(ops, name, fn)
+
+
+def run_call_shapes(rank: int, out: Path) -> None:
+    """One step of each CALL_CELLS cell on (data 2, model 2), its state
+    built and placed as the dry run builds it (``dryrun.build_state``, from
+    a seed): the local kernel calls of rank 0."""
+    from repro_torch.launch import dryrun
+
+    arch, overrides = CALL_ARCH
+    cfg = reduced_config(arch, **overrides)
+    mesh = make_debug_mesh(4, 2, device_type="cpu")
+    got = {}
+    for name, cell in CALL_CELLS.items():
+        model = Model(cfg, device="cpu")
+        state = dryrun.build_state(model, cell, mesh, torch.Generator().manual_seed(0))
+        dryrun.set_opts(model, cell, mesh)
+        try:
+            with local_calls() as seen:
+                dryrun.run_step(model, cell, state)
+        finally:
+            opt_flags.reset()
+        got[name] = [{**json.loads(k), "count": n} for k, n in seen.items()]
+    if rank == 0:
+        (out / "call_shapes.json").write_text(json.dumps(got))
+
+
 CASES = {"parity": run_parity, "wrappers": run_wrappers, "decode": run_decode, "ep_vs_jax": run_ep_vs_jax,
          "elastic_save": run_elastic_save, "elastic_restore": run_elastic_restore,
-         "moe_placed": run_moe_placed}
+         "moe_placed": run_moe_placed, "call_shapes": run_call_shapes}
 
 
 def _rank(rank: int, case: str, world: int, out: str) -> None:

@@ -192,3 +192,93 @@ def test_cost_by_op_adds_up(shape):
         any(m.startswith("scratch of _softmax_backward_data") for m in made) == (shape == "train_4k")), made
     with pytest.raises(ValueError):
         cost.CostMode().by_op_report()
+
+
+def _shape(rec, name):
+    return rec["inputs"][name]["shape"], rec["inputs"][name]["dtype"]
+
+
+def test_production_prefill_records_each_local_call():
+    """mamba2-370m x prefill_32k on the 16x16 mesh: the batch of 32 split
+    over `data` (2 rows a device) and the 32 SSD heads over `model` (2 a
+    device); each distinct call once, with its count, the counts adding up
+    to ``kernel_calls``."""
+    res = dryrun.run_cell("mamba2-370m", "prefill_32k", False, verbose=False)
+    recs = res["kernel_call_shapes"]
+    by = {(r["kernel"], tuple(_shape(r, "x")[0])): r for r in recs}
+    assert len(by) == len(recs) == 3
+    assert by["rmsnorm", (2, 32768, 1024)]["count"] == 49  # ln1 a layer and the final norm
+    assert by["rmsnorm", (2, 32768, 2048)]["count"] == 48  # the gated norm over d_inner
+    ssd = by["ssd_scan", (2, 32768, 2, 64)]
+    assert ssd["count"] == 48 and ssd["chunk"] == 128 and ssd["out_dtype"] == "float32"
+    assert _shape(ssd, "x") == ([2, 32768, 2, 64], "bfloat16") and _shape(ssd, "A") == ([2], "float32")
+    assert _shape(ssd, "B") == _shape(ssd, "C") == ([2, 32768, 128], "bfloat16")
+    assert _shape(ssd, "dt") == ([2, 32768, 2], "float32") and "init_state" not in ssd["inputs"]
+    for name, n in res["kernel_calls"].items():
+        assert sum(r["count"] for r in recs if r["kernel"] == name) == n
+
+
+def test_cost_mode_records_flash_masks_and_positions():
+    """A decode cell and a prefill cell of reduced deepseek-7b on a fake
+    (4, 2) mesh: the flash call's local heads (4 of 4 query heads split
+    over `model` to 2, KV heads 2 to 1), its batch rows, its mask and
+    whether one q_pos row serves the batch."""
+    cfg = reduced_config("deepseek-7b", **KW)
+    cells = {"decode": dataclasses.replace(SHAPES["decode_32k"], global_batch=8, seq_len=64),
+             "prefill": dataclasses.replace(SHAPES["prefill_32k"], global_batch=8, seq_len=64)}
+    with FakeGroup(8):
+        mesh = make_debug_mesh(8, model=2)
+        got = {}
+        for kind, cell in cells.items():
+            model = Model(cfg, device="meta")
+            dryrun.set_opts(model, cell, mesh)
+            got[kind] = dryrun.measure(model, cell, mesh)["mode"].call_records()
+    for kind, Sq in (("decode", 1), ("prefill", 64)):
+        flash = [r for r in got[kind] if r["kernel"] == "flash_attention"]
+        assert len(flash) == 1 and flash[0]["count"] == cfg.n_layers
+        f = flash[0]
+        assert _shape(f, "q") == ([2, Sq, 2, 64], "bfloat16")
+        assert _shape(f, "k") == _shape(f, "v") == ([2, 64, 1, 64], "bfloat16")
+        assert _shape(f, "q_pos") == ([Sq], "int32") and _shape(f, "kv_pos") == ([64], "int32")
+        assert f["causal"] is True and f["window"] is None and f["q_pos_shared"] is True
+        norms = [r for r in got[kind] if r["kernel"] == "rmsnorm"]
+        assert [(_shape(r, "x")[0], r["count"]) for r in norms] == [([2, Sq, 64], 2 * cfg.n_layers + 1)]
+
+
+def test_distinct_calls_merges_the_cells_tables():
+    """``distinct_calls``: a call two cells make is one entry naming both,
+    its counts summed; a failed cell adds nothing; a flash call carries its
+    cell's decode position, so one shape at two depths is two entries."""
+    norm = {"kernel": "rmsnorm", "eps": 1e-6, "inputs": {
+        "x": {"shape": [8, 1, 64], "dtype": "bfloat16"}, "scale": {"shape": [64], "dtype": "float32"}}}
+    other = {**norm, "inputs": {**norm["inputs"], "x": {"shape": [8, 1, 32], "dtype": "bfloat16"}}}
+    flash = {"kernel": "flash_attention", "causal": True, "window": None, "q_pos_shared": True,
+             "inputs": {"q": {"shape": [8, 1, 2, 64], "dtype": "bfloat16"}}}
+    results = [
+        {"arch": "a", "shape": "decode_32k", "kernel_call_shapes": [{**norm, "count": 3},
+                                                                   {**flash, "count": 2}]},
+        {"arch": "b", "shape": "decode_32k", "kernel_call_shapes": [
+            {**norm, "count": 5}, {**other, "count": 1}, {**flash, "count": 4}]},
+        {"arch": "b", "shape": "long_500k", "kernel_call_shapes": [{**flash, "count": 1}]},
+        {"arch": "c", "shape": "train_4k", "ok": False, "error": "x"},
+    ]
+    got = dryrun.distinct_calls(results)
+    last_32k, last_500k = SHAPES["decode_32k"].seq_len - 1, SHAPES["long_500k"].seq_len - 1
+    assert got == [
+        {**flash, "decode_pos": last_32k, "cells": ["a x decode_32k", "b x decode_32k"], "count": 6},
+        {**flash, "decode_pos": last_500k, "cells": ["b x long_500k"], "count": 1},
+        {**norm, "cells": ["a x decode_32k", "b x decode_32k"], "count": 8},
+        {**other, "cells": ["b x decode_32k"], "count": 1},
+    ]
+    prefill = dryrun.distinct_calls([{"arch": "a", "shape": "prefill_32k",
+                                      "kernel_call_shapes": [{**flash, "count": 1}]}])
+    assert prefill[0]["decode_pos"] is None
+
+
+def test_ring_positions_hold_the_latest_position_of_each_slot():
+    """Before the ring wraps, a slot past ``pos`` holds a negative position
+    (not yet written); after, slot j holds the latest position <= pos that
+    is j modulo W."""
+    assert dryrun.ring_positions(4, 1).tolist() == [0, 1, -2, -1]
+    assert dryrun.ring_positions(4, 9).tolist() == [8, 9, 6, 7]
+    assert dryrun.ring_positions(4, 3).tolist() == [0, 1, 2, 3]

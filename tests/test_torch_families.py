@@ -271,6 +271,76 @@ def test_hybrid_decode_chain(per_row):
     _same_caches(tc, jc)
 
 
+def _jax_routes(records):
+    """A stand-in for the reference's ``apply_moe`` that first sends the
+    routing it computes (``repro/models/moe.py`` :57-79, step for step:
+    top-k experts of the softmaxed router scores, and the (token, k) pairs
+    within capacity) to ``records`` through an ordered debug callback, so
+    that it runs under jit and scan."""
+    from repro.models import moe as JX
+
+    apply = JX.apply_moe
+
+    def routed(p, cfg, x):
+        T, E, K = x.shape[0] * x.shape[1], cfg.n_experts, cfg.top_k
+        xt = x.reshape(T, -1)
+        probs = jax.nn.softmax(jnp.einsum("td,de->te", xt.astype(jnp.float32), p["router"]), axis=-1)
+        _, top_i = jax.lax.top_k(probs, K)
+        onehot = jax.nn.one_hot(top_i.reshape(T * K), E, dtype=jnp.int32)
+        pos_in_e = jnp.sum((jnp.cumsum(onehot, axis=0) - 1) * onehot, axis=-1)
+        keep = pos_in_e < JX.moe_capacity(cfg, T)  # [T*K], row-major as the port's
+        jax.debug.callback(lambda i, k: records.append((np.asarray(i), np.asarray(k))),
+                           top_i, keep, ordered=True)
+        return apply(p, cfg, x)
+
+    return routed
+
+
+def test_hybrid_moe_every_4th_layer_matches_jax(monkeypatch):
+    """Reduced jamba with MoE on every 4th layer (positions 3 and 7 of the
+    super-block, the layout of chip_smoke.jamba_cut_config) at capacity
+    factor 0.5: the prefill logits of 2 x 12 tokens and a chain of 4 decode
+    steps at per-row positions within 1e-4 of JAX's, and every routing call
+    (4 MoE layers a pass) the same experts and the same dropped pairs, some
+    pairs dropped."""
+    from repro.models import moe as JX
+    from repro_torch.models import moe as TX
+
+    kw = dict(moe_period=4, capacity_factor=0.5)
+    jcfg, cfg = j_reduced_config(HYBRID, **kw), reduced_config(HYBRID, **kw)
+    assert [f for _, f in cfg.layer_kinds()] == ["dense"] * 3 + ["moe"] + ["dense"] * 3 + ["moe"]
+    jrec, trec = [], []
+    monkeypatch.setattr(JX, "apply_moe", _jax_routes(jrec))
+    route = TX.route
+
+    def recorded(*args):
+        r = route(*args)
+        trec.append((r.top_i.numpy(), r.keep.numpy()))
+        return r
+
+    monkeypatch.setattr(TX, "route", recorded)
+    jm = _Jitted(JModel(jcfg))
+    jp = jm.init(jax.random.PRNGKey(0))
+    tm, tp = TModel(cfg, device="cpu"), params_from_jax(jax.tree.map(np.asarray, jp), cfg)
+    toks = np.random.default_rng(2).integers(0, cfg.vocab_size, (2, 16)).astype(np.int32)
+    jc, tc = jm.init_cache(2, 32, jnp.float32), tm.init_cache(2, 32, torch.float32)
+    lj, jc = jm.prefill(jp, {"tokens": jnp.asarray(toks[:, :12])}, jc)
+    lt, tc = tm.prefill(tp, {"tokens": torch.from_numpy(toks[:, :12])}, tc)
+    _close(lt, lj)
+    for i in range(4):
+        pos = np.array([12 + i, 12 + i], np.int32)
+        tok = toks[:, 12 + i : 13 + i]
+        lj, jc = jm.decode_step(jp, jc, jnp.asarray(tok), jnp.asarray(pos))
+        lt, tc = tm.decode_step(tp, tc, torch.from_numpy(tok), torch.from_numpy(pos))
+        _close(lt, lj)
+    jax.effects_barrier()
+    assert len(trec) == len(jrec) == 5 * 4
+    for (ti, tk), (ji, jk) in zip(trec, jrec):
+        np.testing.assert_array_equal(ti, ji)
+        np.testing.assert_array_equal(tk, jk)
+    assert sum(int((~k).sum()) for _, k in trec) > 0, "no pair dropped: the drop path went untested"
+
+
 @pytest.mark.parametrize("temperature", [0.0, 0.8])
 def test_hybrid_engine_tokens_match_jax(temperature):
     """Greedy and sampled tokens of both engines, exactly.  Prompts of 3

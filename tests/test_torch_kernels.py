@@ -178,6 +178,27 @@ def test_cpu_flash_counts_no_route_and_reset_clears_routes():
     assert ops.FLASH_ROUTES == {"decode": 0, "mma_prefill": 0, "fma": 0}
 
 
+@pytest.mark.parametrize(
+    "D,offset,route",
+    [(128, 0, "row"), (1024, 0, "row"), (4096, 0, "row"), (4096, 1, "general"),
+     (1000, 0, "general"), (8192, 0, "general"), (16384, 0, "general")],
+)
+def test_rmsnorm_route_by_width_and_alignment(D, offset, route):
+    """The row kernel for its widths on 16-byte aligned tensors, the general
+    kernel for any other width or a tensor one element past a boundary.
+    Every name has a code in the C entry point."""
+    x = torch.zeros(2 * D + offset)[offset:].view(2, D)
+    assert ops._rmsnorm_route(D, x, torch.zeros(D), torch.empty_like(x)) == route
+    assert set(ops.RMSNORM_ROUTES) == set(ops._RMSNORM_ROUTE_CODES)
+
+
+def test_cpu_rmsnorm_counts_no_route_and_reset_clears_routes():
+    ops.RMSNORM_ROUTES["general"] += 2
+    ops.reset_launches()
+    ops.rmsnorm(torch.ones(2, 8), torch.ones(8))
+    assert ops.RMSNORM_ROUTES == {"row": 0, "general": 0}
+
+
 def test_flash_shape_keys_and_reset_clears_them():
     """FLASH_SHAPES names a launch by route, head dim and mask; a CPU call
     adds none, and reset_launches empties it."""

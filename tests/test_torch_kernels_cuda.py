@@ -33,9 +33,11 @@ def test_rmsnorm_kernel_matches_plain(cuda_device, rows, D, dtype):
     x = torch.randn(rows, D, generator=gen, device=cuda_device).to(_TDT[dtype])
     s = torch.randn(D, generator=gen, device=cuda_device)
     n = ops.LAUNCHES["rmsnorm"]
+    route = "row" if D in (128, 1024, 2048, 4096) else "general"
+    n_route = ops.RMSNORM_ROUTES[route]
     out = ops.rmsnorm(x, s)
     torch.cuda.synchronize()
-    assert ops.LAUNCHES["rmsnorm"] == n + 1
+    assert ops.LAUNCHES["rmsnorm"] == n + 1 and ops.RMSNORM_ROUTES[route] == n_route + 1
     tol = 1e-5 if dtype == "float32" else 2e-2
     torch.testing.assert_close(out.float(), ref.rmsnorm_ref(x, s).float(), atol=tol, rtol=tol)
 
@@ -53,7 +55,9 @@ def test_rmsnorm_kernel_unaligned_views(cuda_device, D, dtype):
     x = x.view(rows, D)
     s = torch.randn(D + 1, generator=gen, device=cuda_device)[1:]
     assert x.data_ptr() % 16 and s.data_ptr() % 16
+    n = ops.RMSNORM_ROUTES["general"]
     out = ops.rmsnorm(x, s)
+    assert ops.RMSNORM_ROUTES["general"] == n + 1
     tol = 1e-5 if dtype == "float32" else 2e-2
     torch.testing.assert_close(out.float(), ref.rmsnorm_ref(x, s).float(), atol=tol, rtol=tol)
 
@@ -695,6 +699,124 @@ def test_vlm_and_audio_inputs_on_card_match_cpu(cuda_device, arch, head_dim):
     torch.testing.assert_close(l_g.cpu(), l_c, atol=1e-4, rtol=1e-4)
     loss_c, loss_g = cpu.loss(p_cpu, b)[0], gpu.loss(p_gpu, b_gpu)[0]
     torch.testing.assert_close(loss_g.cpu(), loss_c, atol=1e-5, rtol=1e-5)
+
+
+# --------------------------------------------------------------------------
+# jamba-1.5-large-398b's widths, and the dry run's kernel calls replayed
+# --------------------------------------------------------------------------
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["aligned", "offset", "strided"])
+@pytest.mark.parametrize("D", [8192, 16384])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_rmsnorm_jamba_widths(cuda_device, dtype, D, layout):
+    """jamba-1.5-large-398b's d_model 8192 and the gated norm's 16384 on
+    the general kernel: rows of a contiguous tensor ("aligned"), rows that
+    start one element past a 16-byte boundary ("offset"), and every other
+    column of a wider tensor through the model's ``layers.rms_norm``, which
+    hands the kernel a contiguous copy ("strided")."""
+    from repro_torch.models import layers
+
+    gen = torch.Generator(device=cuda_device).manual_seed(D)
+    rows = 37
+    s = torch.randn(D, generator=gen, device=cuda_device)
+    if layout == "offset":
+        x = torch.randn(rows * D + 1, generator=gen, device=cuda_device).to(_TDT[dtype])[1:]
+        x = x.view(rows, D)
+        assert x.data_ptr() % 16
+    elif layout == "strided":
+        x = torch.randn(rows, 2 * D, generator=gen, device=cuda_device).to(_TDT[dtype])[:, ::2]
+        assert not x.is_contiguous()
+    else:
+        x = torch.randn(rows, D, generator=gen, device=cuda_device).to(_TDT[dtype])
+    n, n_general = ops.LAUNCHES["rmsnorm"], ops.RMSNORM_ROUTES["general"]
+    out = layers.rms_norm(x, s) if layout == "strided" else ops.rmsnorm(x, s)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["rmsnorm"] == n + 1 and ops.RMSNORM_ROUTES["general"] == n_general + 1
+    tol = 1e-5 if dtype == "float32" else 2e-2
+    torch.testing.assert_close(out.float(), ref.rmsnorm_ref(x, s).float(), atol=tol, rtol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S", [200, 512])
+def test_ssd_mma_route_jamba_heads(cuda_device, S):
+    """jamba-1.5-large-398b's Mamba layer: 256 heads of P 64, N 128, chunk
+    128, bf16 x, B and C, fp32 y, on the tensor-core route, over a tail
+    chunk and four whole chunks at batch 2."""
+    args = _ssd_inputs(2, S, 256, 64, 128, "bfloat16", cuda_device, seed=S)
+    y, state = _ssd_mma(args, 128, out_dtype=torch.float32)
+    y_want, s_want = ref.ssd_chunked_ref(*args, 128)
+    torch.testing.assert_close(y, y_want, atol=2e-4, rtol=2e-4)
+    torch.testing.assert_close(state, s_want, atol=2e-4, rtol=2e-4)
+
+
+def _chip_smoke():
+    import importlib.util
+    from pathlib import Path
+
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", Path(__file__).resolve().parents[1] / "chip_smoke.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@pytest.fixture(scope="module")
+def dry_run_calls():
+    """The first distinct kernel call of each kernel (``dryrun.distinct_calls``)
+    that a device gets in two cells of the 16x16 dry run: h2o-danube-3-4b x
+    long_500k (RMSNorm, and flash attention over the wrapped 4,096-slot
+    ring) and mamba2-370m x prefill_32k (the SSD scan at 2 of 32 heads).
+    Each dry run makes and destroys a default process group of its own, so
+    they run in a process of their own, whatever group this one holds."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels are built with nvcc and run on the card")
+    import json
+    import os
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    script = (
+        "import json\n"
+        "from repro_torch.launch import dryrun\n"
+        "cells = [('h2o-danube-3-4b', 'long_500k'), ('mamba2-370m', 'prefill_32k')]\n"
+        "print(json.dumps(dryrun.distinct_calls(\n"
+        "    dryrun.run_cell(a, s, False, verbose=False) for a, s in cells)))\n"
+    )
+    src = str(Path(__file__).resolve().parents[1] / "src")
+    env = {**os.environ, "PYTHONPATH": os.pathsep.join(
+        p for p in (src, os.environ.get("PYTHONPATH")) if p)}
+    done = subprocess.run([sys.executable, "-c", script], env=env, capture_output=True,
+                          text=True, timeout=600, check=True)
+    out = {}
+    for call in json.loads(done.stdout.strip().splitlines()[-1]):
+        out.setdefault(call["kernel"], call)
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["rmsnorm", "flash_attention", "ssd_scan"])
+def test_replayed_dry_run_call(cuda_device, dry_run_calls, kernel):
+    """One local call of each kernel from the dry run, drawn at its
+    recorded shapes and dtypes with the positions of its cell
+    (chip_smoke.replay_inputs), launched once and held against its plain
+    version within chip_smoke.PLAIN_TOL row relative L2."""
+    cs = _chip_smoke()
+    call = dry_run_calls[kernel]
+    gen = torch.Generator(device=cuda_device).manual_seed(0)
+    args, kwargs = cs.replay_inputs(torch, call, gen, cuda_device)
+    wrapper = getattr(ops, kernel)
+    n = ops.LAUNCHES[kernel]
+    got = wrapper(*args, **kwargs)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES[kernel] == n + 1
+    want = cs.plain_versions(torch)[kernel](*args, **kwargs)
+    outs, wants = (got, want) if isinstance(got, tuple) else ((got,), (want,))
+    for o, w in zip(outs, wants):
+        keep = cs.CallsAgainstPlain.KEEP[kernel] % o.ndim
+        assert cs.rel_rows(o, w, keep) <= cs.PLAIN_TOL, cs.describe_call(call)
 
 
 # --------------------------------------------------------------------------

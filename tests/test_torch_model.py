@@ -187,3 +187,41 @@ def test_init_draws_at_most_a_block_slice(arch, monkeypatch):
         assert cap is None or n <= cap, (arch, n, cap)
     if arch in ("granite-34b", "qwen3-32b"):
         assert max(seen) <= 1 << 30, (arch, max(seen))
+
+
+def test_jamba_cut_counts_its_parameters_on_meta(monkeypatch):
+    """chip_smoke.jamba_cut_config, the jamba-1.5-large-398b the card
+    serves: every width of the registered config, n_layers 8 and
+    moe_period 4 (MoE at positions 3 and 7), 27.03 G parameters on the
+    meta device (54.05 GB in bf16), 38.65 GB of them the two MoE layers'
+    experts; its largest draw in fp32 (``largest_draw_bytes``) is one MoE
+    layer's [16, 8192, 24576] w_up, whose spy-counted draw it equals."""
+    import importlib.util
+    from pathlib import Path
+
+    from repro_torch.models.model import n_params
+    from repro_torch.tree import leaves_with_paths
+
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", Path(__file__).resolve().parents[1] / "chip_smoke.py")
+    cs = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cs)
+    cfg, full = cs.jamba_cut_config(), get_config("jamba-1.5-large-398b")
+    assert dataclasses.replace(full, n_layers=8, moe_period=4) == cfg
+    assert [f for _, f in cfg.layer_kinds()].count("moe") == 2 and cfg.n_scan_blocks == 1
+    seen = []
+    randn = torch.randn
+
+    def spy(*size, **kw):
+        t = randn(*size, **kw)
+        seen.append(t.numel())
+        return t
+
+    monkeypatch.setattr(torch, "randn", spy)
+    params = TModel(cfg, device="meta").param_specs()
+    assert n_params(params) == 27_025_004_544
+    sizes = {k: t.numel() * t.element_size() for k, t in leaves_with_paths(params)}
+    assert round(sum(sizes.values()) / 1e9, 2) == 54.05
+    experts = sum(n for k, n in sizes.items() if "/moe/w_" in k)
+    assert experts == 2 * 3 * 16 * 8192 * 24576 * 2  # 38.65 GB
+    assert cs.largest_draw_bytes(cfg) == 4 * max(seen) == 4 * 16 * 8192 * 24576

@@ -23,6 +23,9 @@ so no process group outlives a test.
   ``apply_moe_shard_map`` on 8 host devices: the output within 1e-4 (the
   tolerance of tests/test_moe_shard_map.py), aux the mean of the data
   shards' own, grads finite.
+* The kernel calls the dry run records on the meta device (their local
+  shapes, masks, positions and counts) are the calls a 2x2 run of the
+  same cells hands the kernel wrappers.
 * A train state saved from 4 ranks and restored by ``elastic_restore``
   onto 2 (``plan_elastic_mesh``) comes back exactly.
 * ``HeartbeatMonitor``, ``plan_elastic_mesh``, ``StragglerDetector`` and
@@ -40,7 +43,8 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from _torch_parallel_worker import (  # noqa: E402
-    DECODE, PARITY, FakeGroup, decode_inputs, elastic_state, parity_inputs, serve,
+    CALL_ARCH, CALL_CELLS, DECODE, PARITY, FakeGroup, decode_inputs, elastic_state, parity_inputs,
+    serve,
 )
 from torch.distributed.device_mesh import init_device_mesh  # noqa: E402
 from torch.distributed.tensor import distribute_tensor  # noqa: E402
@@ -75,7 +79,7 @@ def _worker(cases, world, out):
 @pytest.fixture(scope="module")
 def runs(tmp_path_factory):
     out = tmp_path_factory.mktemp("gloo")
-    _worker("parity,wrappers,decode,elastic_save", 4, out)
+    _worker("parity,wrappers,decode,elastic_save,call_shapes", 4, out)
     _worker("elastic_restore", 2, out)
     return out
 
@@ -142,6 +146,45 @@ def test_kernel_wrappers_on_dtensors(runs):
     raised = (runs / "wrappers_raised.txt").read_text().split("\n")
     assert raised == ["rmsnorm D split", "rmsnorm partial", "flash head dim split",
                       "ssd state split"]
+
+
+@pytest.mark.parametrize("kind", list(CALL_CELLS))
+def test_dry_run_records_the_local_kernel_calls(runs, kind):
+    """Reduced jamba (one super-block) on (data 2, model 2): every distinct
+    kernel call that the dry run on the meta device records
+    (``CostMode.call_records``), with its count, is a call that the gloo
+    run hands a kernel wrapper on rank 0's local shards, and no other:
+    the batch split over `data`, query heads, KV heads and SSD heads over
+    `model`; a train step's remat recompute counted."""
+    import json
+
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.parallel import opt_flags
+
+    got = json.loads((runs / "call_shapes.json").read_text())[kind]
+    arch, overrides = CALL_ARCH
+    cfg, cell = reduced_config(arch, **overrides), CALL_CELLS[kind]
+    with FakeGroup(4):
+        mesh = make_debug_mesh(4, model=2)
+        model = Model(cfg, device="meta")
+        dryrun.set_opts(model, cell, mesh)
+        try:
+            want = dryrun.measure(model, cell, mesh)["mode"].call_records()
+        finally:
+            opt_flags.reset()
+    key = lambda r: json.dumps(r, sort_keys=True)  # noqa: E731
+    assert sorted(map(key, got)) == sorted(map(key, want))
+    kernels = {r["kernel"] for r in want}
+    assert kernels == ({"rmsnorm", "flash_attention"} if kind == "decode" else
+                       {"rmsnorm", "flash_attention", "ssd_scan"})
+    flash = next(r for r in want if r["kernel"] == "flash_attention")
+    assert flash["inputs"]["q"]["shape"][0] == cell.global_batch // 2
+    assert flash["inputs"]["q"]["shape"][2] == cfg.n_heads // 2
+    assert flash["inputs"]["k"]["shape"][2] == cfg.n_kv_heads // 2
+    for r in want:
+        if r["kernel"] == "ssd_scan":
+            assert r["inputs"]["x"]["shape"][2] == cfg.ssm_heads // 2
 
 
 def test_elastic_restore_onto_fewer_ranks(runs):

@@ -29,6 +29,7 @@ from repro_torch.serve import latency as p_latency  # noqa: E402
 
 # pytest puts the tests directory on sys.path (no tests/__init__.py)
 import test_golden as G  # noqa: E402
+import test_scenario as S  # noqa: E402
 
 ROOT = Path(__file__).resolve().parents[1]
 REF_DIR = ROOT / "src" / "repro" / "core"
@@ -165,6 +166,55 @@ def test_simulate_digests_equal(name):
     assert got.schedule_digest() == want.schedule_digest()
     assert got.total_flow_time == want.total_flow_time
     assert (got.peak_queue_depth, got.n_migrations) == (want.peak_queue_depth, want.n_migrations)
+
+
+def _roundtrip_scenario(core, seed):
+    """The scenario of tests/test_scenario.py's
+    test_roundtripped_scenario_replays_byte_identical at ``seed``, built
+    through ``core``: its 6 x 4-GPU cluster, three degradations drawn from
+    the seed, and its 80-job trace (jobs of up to 16 GPUs)."""
+    rng = np.random.default_rng(seed)
+    cluster = S._hom_cluster()
+    events = tuple(
+        core.Degradation(float(rng.uniform(50.0, 1200.0)), int(rng.integers(0, cluster.num_servers)),
+                         factor=float(rng.choice([0.0, 0.25, 0.5])))
+        for _ in range(3))
+    jobs = S._trace(seed, n_jobs=80)
+    if core is P:
+        cluster, jobs = _port_cluster(cluster), _port_jobs(jobs)
+    return core.Scenario(jobs=tuple(jobs), cluster=cluster, events=events)
+
+
+# ROADMAP.md C5: at seeds 2213 and 343 all three degradations are factor 0.0
+# on three different servers, so 12 GPUs are left for jobs of up to 16 and
+# the reference's simulator ends with jobs unfinished; seed 0 (two servers
+# at 0.0) leaves 16 GPUs, and every job startable.
+@pytest.mark.parametrize("seed,unfinished", [(2213, 55), (343, 58), (0, None)])
+def test_roundtrip_scenario_fault_is_the_reference_s(seed, unfinished):
+    """Both packages raise the same error, with the same count of
+    unfinished jobs, where the reference test's data strands its jobs, and
+    give the same schedule where it does not."""
+    scenarios = {core: _roundtrip_scenario(core, seed) for core in (R, P)}
+    cluster = scenarios[R].cluster
+    left = cluster.gpus_per_server * (cluster.num_servers - len(
+        {e.server for e in scenarios[R].events if e.factor == 0.0}))
+    for migrate in (True, False):
+        runs = {}
+        for core, sc in scenarios.items():
+            policy = core.ASRPTPolicy(core.make_predictor("mean"), tau=2.0, migrate=migrate,
+                                      migration_penalty=30.0)
+            try:
+                runs[core] = core.simulate(sc, policy)
+            except RuntimeError as e:
+                runs[core] = str(e)
+        if unfinished is None:
+            assert left >= 16
+            assert runs[P].schedule_digest() == runs[R].schedule_digest()
+            assert runs[P].total_flow_time == runs[R].total_flow_time
+        else:
+            assert left == 12
+            want = f"simulation ended with {unfinished} unfinished jobs"
+            assert runs[R] == runs[P] == want, (migrate, runs)
 
 
 @pytest.mark.parametrize("refine", [False, True])
