@@ -124,13 +124,15 @@ Phases (any failure exits non-zero):
                 through the kernels (mma_prefill, mma) against the plain
                 versions on the card, and in fp32 against the CPU with the
                 same routing.
- 11. parallel — the dry run (repro_torch.launch.dryrun) of one shape per
-                arch, of the two MoE prefills and of the two Mamba prefills
-                (jamba-1.5-large-398b and mamba2-370m at prefill_32k), on a
-                fake 16x16 mesh (256 ranks), a line per cell: fits_h100
-                (which every cell must), the per-device peak, FLOPs,
-                collective bytes, the bottleneck, and each distinct kernel
-                call the cell hands a device, at its local shapes.  Every
+ 11. parallel — the dry run (repro_torch.launch.dryrun) of every cell
+                (each arch at each of its shapes, 32; the train cells under
+                sp) on a fake 16x16 mesh (256 ranks), started in three
+                spawned worker processes when the run begins and collected
+                here, a line per cell: fits_h100 (which every cell must but
+                those of OVER_H100, held at their recorded peak), the
+                per-device peak, FLOPs, collective bytes, the bottleneck,
+                and each distinct kernel call the cell hands a device, at
+                its local shapes.  Every
                 distinct call of these cells is replayed on the card from
                 seeded inputs at those shapes against its plain version
                 (row error within PLAIN_TOL), with the route the launch
@@ -2273,21 +2275,31 @@ def jamba_phase(torch, np, ops, dev):
 # phase 11: the parallel and launch layer
 # --------------------------------------------------------------------------
 
-# The dry run of one shape per arch on the fake 16x16 mesh (all 32 cells
-# take about 160 s of host time: python -m repro_torch.launch.dryrun --all
-# writes them), the two MoE prefills, whose dispatch slab is placed over the
-# mesh, and the two Mamba prefills, whose SSD scans run at the heads a device
-# holds; every cell must fit one H100, and every distinct kernel call they
-# hand a device is replayed on the card (replay_phase).
-DRYRUN_CELLS = (
-    ("deepseek-7b", "decode_32k"), ("granite-34b", "decode_32k"),
-    ("h2o-danube-3-4b", "long_500k"), ("hubert-xlarge", "prefill_32k"),
-    ("jamba-1.5-large-398b", "long_500k"), ("llava-next-mistral-7b", "decode_32k"),
-    ("mamba2-370m", "long_500k"), ("moonshot-v1-16b-a3b", "decode_32k"),
-    ("qwen3-32b", "prefill_32k"), ("qwen3-moe-30b-a3b", "decode_32k"),
-    ("qwen3-moe-30b-a3b", "prefill_32k"), ("moonshot-v1-16b-a3b", "prefill_32k"),
-    ("jamba-1.5-large-398b", "prefill_32k"), ("mamba2-370m", "prefill_32k"),
-)
+class EveryCell:
+    """Every (arch, shape) of the dry run: each arch of the registry at each
+    of its ``applicable_shapes`` (32 cells), read when iterated, since the
+    port is on the path only once ``main`` has put it there."""
+
+    def __iter__(self):
+        from repro_torch.configs import applicable_shapes, get_config, list_archs
+
+        return iter([(a, s) for a in list_archs() for s in applicable_shapes(get_config(a))])
+
+
+# The dry run of every cell on the fake 16x16 mesh, the train cells under sp
+# (dryrun_opts); each must fit one H100 but those of OVER_H100, and every
+# distinct kernel call they hand a device is replayed on the card
+# (replay_phase).  The cells run in DRYRUN_WORKERS spawned processes from the
+# start of the run (BackgroundDryRuns), beside the card phases.
+DRYRUN_CELLS = EveryCell()
+DRYRUN_WORKERS = 3
+# cells whose per-device peak is above 80 GB with every tensor where the
+# reference places it, held within PEAK_RECORD_TOL of the peak the dry run
+# counts for them under each torch (major.minor), in bytes (PERF.md,
+# ROADMAP.md A10): below 2.13 the model keeps each sublayer's input
+# gathered on the sequence (repro_torch.dtensor_util.AT_LEAST_2_13)
+OVER_H100 = {("jamba-1.5-large-398b", "train_4k"): {"2.11": 91887420928, "2.13": 85847622144}}
+PEAK_RECORD_TOL = 0.01
 # The cells run on the card, on a (1, 1) mesh: (arch, shape, batch cut to
 # (None: not cut), layers cut to (None: not cut), opts, launches a step by
 # kernel, route, head dim and mask, the cut as PERF.md states it).
@@ -2324,31 +2336,94 @@ FLASH_PLAIN_BYTES = 1 << 30
 SEGMENT = 2 << 20  # the caching allocator's large segments are whole 2 MiB
 
 
-def dryrun_cells(torch):
-    """The dry run of DRYRUN_CELLS, each on a fake group of 256 made and
-    destroyed by run_cell; one line each, and one for the distinct kernel
-    calls it hands a device.  Returns the cells' results."""
+def dryrun_opts(shape: str) -> tuple:
+    """The options a dry-run cell runs under: ``sp`` for a train cell."""
+    from repro_torch.configs import SHAPES
+
+    return ("sp",) if SHAPES[shape].kind == "train" else ()
+
+
+def dryrun_one(arch: str, shape: str, opts: tuple) -> dict:
+    """One dry-run cell on a fake group of 256, made and destroyed by
+    run_cell (in a worker process of BackgroundDryRuns), with its host
+    seconds."""
+    import torch
     import torch.distributed as dist
 
     from repro_torch.launch import dryrun
 
-    results = []
-    for arch, shape in DRYRUN_CELLS:
-        t0 = time.perf_counter()
-        r = dryrun.run_cell(arch, shape, False, verbose=False)
-        assert r["ok"] and r["fits_h100"] and not dist.is_initialized(), r
+    torch.set_num_threads(1)
+    t0 = time.perf_counter()
+    r = dryrun.run_cell(arch, shape, False, verbose=False, opts=opts)
+    assert not dist.is_initialized()
+    return {**r, "s": round(time.perf_counter() - t0, 1)}
+
+
+class BackgroundDryRuns:
+    """The dry run of DRYRUN_CELLS, started in DRYRUN_WORKERS spawned worker
+    processes (which inherit the path to the port) when the run begins, the
+    train cells first (the longest); ``results`` waits for them, and a cell
+    that failed fails the run there.  ``close`` ends the workers, finished
+    or not."""
+
+    def __init__(self):
+        import multiprocessing
+        from concurrent.futures import ProcessPoolExecutor
+
+        cells = sorted(DRYRUN_CELLS, key=lambda c: not dryrun_opts(c[1]))
+        self.t0 = time.perf_counter()
+        self.pool = ProcessPoolExecutor(DRYRUN_WORKERS,
+                                        mp_context=multiprocessing.get_context("spawn"))
+        self.cells = [(arch, shape, self.pool.submit(dryrun_one, arch, shape, dryrun_opts(shape)))
+                      for arch, shape in cells]
+
+    def results(self):
+        """Each cell's result, one line each and one for the distinct
+        kernel calls it hands a device; then every cell is held: ok, and
+        fits_h100 or the peak OVER_H100 records under this torch."""
+        import torch
+
+        results, waited = [], time.perf_counter()
         keys = ("fits_h100", "peak_memory_bytes", "state_bytes", "flops", "bytes",
                 "coll_bytes", "coll_breakdown", "model_flops", "bottleneck", "kernel_calls")
-        log("dryrun: " + json.dumps({"cell": f"{arch} x {shape} x 16x16",
-                                     "s": round(time.perf_counter() - t0, 1),
-                                     **{k: r[k] for k in keys}}))
-        calls = r["kernel_call_shapes"]
-        for name, n in r["kernel_calls"].items():
-            assert sum(c["count"] for c in calls if c["kernel"] == name) == n, (arch, shape, name)
-        log(f"dryrun: {arch} x {shape}: {len(calls)} distinct kernel calls a device: "
-            + "; ".join(f"{c['count']} x {describe_call(c)}" for c in calls))
-        results.append(r)
-    return results
+        for arch, shape, future in self.cells:
+            try:
+                r = future.result()
+            except Exception as e:  # held below, after every cell's line
+                r = {"ok": False, "s": None, "error": f"{e!r} from {e.__cause__}"}
+            log("dryrun: " + json.dumps({"cell": f"{arch} x {shape} x 16x16",
+                                         "opts": list(dryrun_opts(shape)), "s": r["s"],
+                                         **{k: r.get(k) for k in ("ok", "error", *keys)}}))
+            calls = r.get("kernel_call_shapes", [])
+            log(f"dryrun: {arch} x {shape}: {len(calls)} distinct kernel calls a device: "
+                + "; ".join(f"{c['count']} x {describe_call(c)}" for c in calls))
+            results.append(r)
+        now = time.perf_counter()
+        log(f"parallel: dry run of {len(results)} cells in {DRYRUN_WORKERS} workers, "
+            f"{now - self.t0:.1f} s after they started, {now - waited:.1f} s of it waited for here; "
+            f"{sum(r['s'] or 0 for r in results):.1f} s of host time")
+        version = ".".join(torch.__version__.split(".")[:2])
+        for (arch, shape, _), r in zip(self.cells, results):
+            assert r["ok"], r
+            if (arch, shape) in OVER_H100:
+                want = OVER_H100[arch, shape][version]
+                assert abs(r["peak_memory_bytes"] - want) <= PEAK_RECORD_TOL * want, (
+                    arch, shape, r["peak_memory_bytes"], want)
+            else:
+                assert r["fits_h100"], (arch, shape, r["peak_memory_bytes"])
+            calls = r["kernel_call_shapes"]
+            for name, n in r["kernel_calls"].items():
+                assert sum(c["count"] for c in calls if c["kernel"] == name) == n, (arch, shape, name)
+        return results
+
+    def close(self):
+        # the pool's own processes: Python 3.12's executor cannot terminate them
+        workers = list(self.pool._processes.values())
+        self.pool.shutdown(wait=False, cancel_futures=True)
+        for w in workers:
+            if w.is_alive():
+                w.terminate()
+            w.join()
 
 
 def describe_call(call) -> str:
@@ -2410,7 +2485,7 @@ def replay_inputs(torch, call, gen, dev):
 
 def replay_phase(torch, ops, timer, dev, results):
     """Every distinct local kernel call of the dry-run cells (``results``,
-    from ``dryrun_cells``, merged by ``dryrun.distinct_calls``) launched on
+    from ``BackgroundDryRuns.results``, merged by ``dryrun.distinct_calls``) launched on
     the card at its recorded shapes and dtypes (``replay_inputs``) and held
     against its plain version on the same inputs: each output's worst row
     relative L2 within PLAIN_TOL; the route it took, read from the launch
@@ -2431,7 +2506,8 @@ def replay_phase(torch, ops, timer, dev, results):
 
     gen = torch.Generator(device=dev).manual_seed(23)
     launched, rows = {}, []
-    for call in dryrun.distinct_calls(results):
+    calls = dryrun.distinct_calls(results)
+    for call in calls:
         name = call["kernel"]
         args, kwargs = replay_inputs(torch, call, gen, dev)
         before = counts()
@@ -2478,9 +2554,10 @@ def replay_phase(torch, ops, timer, dev, results):
                                "slowest": {k: slowest[k] for k in ("call", "ms", "bound_ms")}}
         summary[name] = {"calls": len(mine), "by_route": by_route,
                          "worst_row_rel_l2": max(r["worst_row_rel_l2"] for r in mine)}
-    log(f"replay: {len(rows)} distinct local kernel calls of {len(results)} dry-run cells on the "
-        f"16x16 mesh launched on the card, each within {PLAIN_TOL} of its plain version: by kernel "
-        f"and route {json.dumps(summary)}")
+    assert len(rows) == len(calls), (len(rows), len(calls))
+    log(f"replay: {len(calls)} distinct local kernel calls of {len(results)} dry-run cells on the "
+        f"16x16 mesh, {len(rows)} launched on the card, each within {PLAIN_TOL} of its plain "
+        f"version: by kernel and route {json.dumps(summary)}")
     return launched, summary
 
 
@@ -2691,20 +2768,18 @@ def moe_placed_against_plain(torch, cfg, cell, state, mesh, dev):
         del y, aux, want_y, want_aux
 
 
-def parallel_phase(torch, ops, timer, dev, card_cells=True):
-    """Phase 11: the dry run on the fake 16x16 mesh and the replay of its
-    kernel calls on the card, then (``card_cells``) CARD_CELLS on a
-    one-rank NCCL group (a FileStore: no network) and a (1, 1) cuda mesh.
-    Returns the replay's and each card cell's launches, and the replay's
-    summary."""
+def parallel_phase(torch, ops, timer, dev, dry, card_cells=True):
+    """Phase 11: the dry run on the fake 16x16 mesh (``dry``, a
+    BackgroundDryRuns) and the replay of its kernel calls on the card, then
+    (``card_cells``) CARD_CELLS on a one-rank NCCL group (a FileStore: no
+    network) and a (1, 1) cuda mesh.  Returns the replay's and each card
+    cell's launches, and the replay's summary."""
     import tempfile
 
     import torch.distributed as dist
     from torch.distributed.device_mesh import init_device_mesh
 
-    t0 = time.perf_counter()
-    results = dryrun_cells(torch)
-    log(f"parallel: dry run of {len(DRYRUN_CELLS)} cells in {time.perf_counter() - t0:.1f} s")
+    results = dry.results()
     t0 = time.perf_counter()
     launches = {}
     launches["parallel/replay"], summary = replay_phase(torch, ops, timer, dev, results)
@@ -2953,6 +3028,18 @@ def main(argv=None) -> int:
         print("chip_smoke: no CUDA device; this script runs on the GPU only", file=sys.stderr)
         return 1
     sys.path.insert(0, str(args.src.resolve() / "src"))
+    # phase 11's dry runs, on the host from here on, beside the card phases
+    dry = BackgroundDryRuns() if not args.only or {"replay", "parallel"} & set(args.only) else None
+    try:
+        return run_phases(torch, args, dry)
+    finally:
+        if dry is not None:
+            dry.close()
+
+
+def run_phases(torch, args, dry) -> int:
+    """Phases 1-12 (or those ``args.only`` names); ``dry``: the dry runs
+    phase 11 collects."""
     import numpy as np
 
     from repro_torch.configs import get_config
@@ -2998,7 +3085,7 @@ def main(argv=None) -> int:
         if "jamba" in args.only:
             jamba_phase(torch, np, ops, dev)
         if "replay" in args.only or "parallel" in args.only:
-            parallel_phase(torch, ops, timer, dev, card_cells="parallel" in args.only)
+            parallel_phase(torch, ops, timer, dev, dry, card_cells="parallel" in args.only)
         if "sched" in args.only:
             cfg = get_config("deepseek-7b")
             curves = {cfg.name: calibrate_phase(cfg, init_params(torch, Model, cfg, dev), card)}
@@ -3102,7 +3189,7 @@ def main(argv=None) -> int:
     lap("10c")
     # 11. the parallel and launch layer: the dry run, the replay of its kernel
     # calls, and its cells on the card
-    parallel_launches, replayed = parallel_phase(torch, ops, timer, dev)
+    parallel_launches, replayed = parallel_phase(torch, ops, timer, dev, dry)
     path_launches.update(parallel_launches)
 
     lap("11")
@@ -3111,7 +3198,7 @@ def main(argv=None) -> int:
 
     lap("12")
     line = kernels_line(results, path_launches, ops, replayed)
-    log(f"total: {time.perf_counter() - t_start:.1f} s")
+    log(f"total: {time.perf_counter() - t_start:.1f} s, phase 11 {laps[-2] - laps[-3]:.1f} s, on {card}")
     print(json.dumps({"kernels": line}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -26,7 +26,7 @@ from torch.distributed.tensor.experimental import local_map
 
 from ..configs.base import ArchConfig
 from ..kernels import ops
-from ..dtensor_util import local_range, unsplit
+from ..dtensor_util import AT_LEAST_2_13, local_range, summed_over_splits, unsplit
 from ..parallel.sharding import replicate_like
 
 Params = Dict[str, Any]
@@ -358,7 +358,24 @@ def init_embedding(gen: torch.Generator, cfg: ArchConfig) -> Params:
 
 
 def embed_tokens(p: Params, tokens: torch.Tensor) -> torch.Tensor:
-    return p["tokens"][tokens]
+    table = p["tokens"]
+    if isinstance(table, DTensor) and not AT_LEAST_2_13:
+        return _lookup_on_ranks(table, tokens)
+    return table[tokens]
+
+
+def _lookup_on_ranks(table: DTensor, tokens: DTensor) -> DTensor:
+    """``table[tokens]`` on each rank's tokens from the table gathered
+    whole, placed as the tokens are; the table's gradient is each rank's
+    partial sum over its tokens.  (torch 2.11's DTensor has no strategy for
+    the lookup's backward, an ``index_put``, with the tokens split.)"""
+    mesh, tp = tokens.device_mesh, tokens.placements
+    table = table.redistribute(mesh, (Replicate(),) * mesh.ndim)
+    return local_map(
+        lambda t, i: t[i], out_placements=(tp,), in_placements=(table.placements, tp),
+        in_grad_placements=(summed_over_splits(tp), tp),
+        device_mesh=mesh,
+    )(table, tokens)
 
 
 def unembed(p: Params, cfg: ArchConfig, x: torch.Tensor) -> torch.Tensor:

@@ -22,7 +22,9 @@ On DTensors (``_placed_mix``) the prefill's products and conv run on
 column blocks of in_proj, each split over `model` (x on head boundaries),
 so each weight gradient is a local product; the conv runs on each rank's
 channels, and then B and C are gathered whole for the scan; y is split
-again after the gated norm, so out_proj's product is row-parallel.  Plain
+again after the gated norm, so out_proj's product is row-parallel.  Under
+``sp`` the gated norm and out_proj run on each rank's sequence rows
+instead, out_proj gathered whole (``_gate_and_project_rows``).  Plain
 tensors take the code path the JAX parity tests hold.
 """
 from __future__ import annotations
@@ -36,8 +38,9 @@ from torch.distributed.tensor.experimental import local_map
 
 from ..configs.base import ArchConfig
 from ..kernels import ops
+from ..parallel import opt_flags
 from ..parallel import sharding as sh
-from ..dtensor_util import unsplit
+from ..dtensor_util import summed_over_splits, unsplit
 from . import layers as L
 
 Params = Dict[str, Any]
@@ -91,10 +94,15 @@ def _gate_and_project(
     On DTensors the normed y is split over `model` again (a local slice),
     so the product is row-parallel, as out_proj is placed: its output's
     partial sums are reduced over `model`, and out_proj's gradient is each
-    rank's ``[di/model, D]``."""
+    rank's ``[di/model, D]``.  Under ``sp``, where `model` splits the
+    sequence, the norm and the product run on each rank's sequence rows
+    instead (``_gate_and_project_rows``)."""
     B, S, di = y.shape
+    g = y * F.silu(z)
+    if isinstance(g, DTensor) and opt_flags.get("sp") and sh.maybe(g.device_mesh, S, "model"):
+        return _gate_and_project_rows(p, g)
     # the norm needs all of d_inner: gathered where tensor parallelism split it
-    y = L.rms_norm(unsplit(y * F.silu(z), -1), p["norm"])
+    y = L.rms_norm(unsplit(g, -1), p["norm"])
     if isinstance(y, DTensor) and sh.maybe(y.device_mesh, di, "model"):
         y = _on_model(y, 2)
     out = (y.reshape(B * S, di) @ p["out_proj"]).view(B, S, -1)
@@ -102,6 +110,25 @@ def _gate_and_project(
         out = out.redistribute(out.device_mesh, tuple(
             Replicate() if q.is_partial() else q for q in out.placements))
     return out
+
+
+def _gate_and_project_rows(p: Params, g: DTensor) -> DTensor:
+    """``_gate_and_project`` of the gated rows ``g [B,S,di]`` under ``sp``,
+    as the reference places it: g moved from its d_inner split over
+    `model` to a sequence split (an all-to-all, the same bytes a device),
+    the norm on each rank's whole rows, and the product with out_proj
+    gathered whole over `model` (a weight).  The output ``[B,S,D]`` is
+    split as the ``sp`` residual is, with no partial sums; out_proj's
+    gradient is each rank's partial sum over its rows."""
+    di = g.shape[-1]
+    g = L.rms_norm(_on_model(g, 1), p["norm"])
+    w = sh.constrain(p["out_proj"], (None, None))
+    rows = g.placements
+    return local_map(
+        lambda a, w_: (a.reshape(-1, di) @ w_).view(*a.shape[:-1], -1),
+        out_placements=(rows,), in_placements=(rows, w.placements),
+        in_grad_placements=(rows, summed_over_splits(rows)), device_mesh=g.device_mesh,
+    )(g, w)
 
 
 def _on_model(t: DTensor, dim: int) -> DTensor:

@@ -44,6 +44,15 @@ PARITY = {
     # is above TOL: a 1e-7 relative change of every weight moves a leaf's
     # grad by up to 2.9e-5 of its largest magnitude
     "jamba-1.5-large-398b": ("jamba-1.5-large-398b", (), {"n_layers": 8}),
+    # under sp the gated norm and out_proj run on each rank's sequence rows
+    # (mamba._gate_and_project_rows)
+    "jamba-1.5-large-398b/sp": ("jamba-1.5-large-398b", ("sp",), {"n_layers": 8}),
+    # the same with the placements the model takes on torch below 2.13
+    # (dtensor_util.AT_LEAST_2_13 false: each sublayer's input gathered on
+    # the sequence, its output placed as the residual, the embedding looked
+    # up on each rank's tokens)
+    "jamba-1.5-large-398b/sp/below_2_13": ("jamba-1.5-large-398b", ("sp", "below_2_13"),
+                                           {"n_layers": 8}),
     "qwen3-moe-30b-a3b/moe_ep": ("qwen3-moe-30b-a3b", ("moe_ep",), {}),
     # no pair drops at this capacity, as in tests/test_moe_shard_map.py
     "qwen3-moe-30b-a3b/moe_a2a": ("qwen3-moe-30b-a3b", ("moe_a2a",), {"capacity_factor": 8.0}),
@@ -101,6 +110,21 @@ def scan_placements():
         ops._ssd_dtensor = run
 
 
+@contextmanager
+def placements_below_2_13(on: bool):
+    """While ``on``, the model takes the placements it takes on torch
+    below 2.13 (``dtensor_util.AT_LEAST_2_13`` false where it is read)."""
+    from repro_torch.models import layers, model
+
+    saved = model.AT_LEAST_2_13, layers.AT_LEAST_2_13
+    if on:
+        model.AT_LEAST_2_13 = layers.AT_LEAST_2_13 = False
+    try:
+        yield
+    finally:
+        model.AT_LEAST_2_13, layers.AT_LEAST_2_13 = saved
+
+
 def run_parity(rank: int, out: Path) -> None:
     mesh = make_debug_mesh(4, 2, device_type="cpu")
     for name, (arch, flags, overrides) in PARITY.items():
@@ -111,7 +135,7 @@ def run_parity(rank: int, out: Path) -> None:
         res = {}
         for tag, batch in (("distinct", distinct), ("twice", twice)):
             dbatch = sh.distribute(batch, sh.batch_shardings(cfg, batch, mesh), mesh)
-            with scan_placements() as scans:
+            with scan_placements() as scans, placements_below_2_13("below_2_13" in flags):
                 logits, _ = model.prefill(dparams, {"tokens": dbatch["tokens"]})
                 loss, metrics, grads = loss_and_grads(model, dparams, dbatch)
             res[f"{tag}/scan_x"] = np.array(scans, dtype=str)

@@ -23,6 +23,11 @@ against the JAX package's.
 * ``run_cell(by_op=N)`` counts what it counts without, and its by-op
   report adds up: the ops' FLOPs to the cell's, the storages live at the
   peak (the softmax backward's scratch among them) to its peak.
+* Under ``sp``, reduced jamba-1.5-large-398b ``train_4k`` on the fake
+  (4, 2) mesh peaks below the count it had while the gated norm gathered
+  its rows whole, its FLOPs within 1 % of that count; reduced deepseek-7b
+  (no Mamba block) counts its recorded peak and FLOPs exactly, with and
+  without ``sp``.
 
 The reduced configs run at head_dim 64 and in bf16, widths the card's
 kernels take (on the meta device the wrappers check what they take).
@@ -282,3 +287,33 @@ def test_ring_positions_hold_the_latest_position_of_each_slot():
     assert dryrun.ring_positions(4, 1).tolist() == [0, 1, -2, -1]
     assert dryrun.ring_positions(4, 9).tolist() == [8, 9, 6, 7]
     assert dryrun.ring_positions(4, 3).tolist() == [0, 1, 2, 3]
+
+
+# Reduced jamba-1.5-large-398b x train_4k under sp on the fake (4, 2) mesh,
+# counted while the gated norm gathered y * silu(z) whole over `model`
+# (before mamba._gate_and_project_rows): (peak bytes, FLOPs)
+JAMBA_SP_WHOLE_ROWS = (38589130240, 6877052141568)
+# Reduced deepseek-7b x train_4k on the same mesh, with and without sp: a
+# cell with no Mamba block, which the gated norm's placement leaves alone
+DEEPSEEK_TRAIN = {("sp",): (34951463424, 5661068886016), (): (35018572288, 5661370875904)}
+
+
+def _reduced_train_cell(arch, opts):
+    with FakeGroup(8):
+        mesh = make_debug_mesh(8, model=2)
+        res = dryrun.run_cell(arch, "train_4k", False, verbose=False, mesh=mesh,
+                              cfg=reduced_config(arch, **KW), opts=opts)
+    assert res["ok"] and not dist.is_initialized()
+    return res["peak_memory_bytes"], res["flops"]
+
+
+def test_sp_gated_rows_lower_the_hybrid_train_peak():
+    peak, flops = _reduced_train_cell("jamba-1.5-large-398b", ("sp",))
+    before_peak, before_flops = JAMBA_SP_WHOLE_ROWS
+    assert peak < before_peak, (peak, before_peak)
+    assert abs(flops - before_flops) <= 0.01 * before_flops, (flops, before_flops)
+
+
+@pytest.mark.parametrize("opts", list(DEEPSEEK_TRAIN))
+def test_cell_without_mamba_counts_as_before(opts):
+    assert _reduced_train_cell("deepseek-7b", opts) == DEEPSEEK_TRAIN[opts]

@@ -12,8 +12,13 @@ whole in_proj-shaped
 gradient computed unsplit), no activation is a whole ``[B, S, Proj]``
 projection or a whole fp32 ``[B, S+k-1, Ch]`` conv input, and each
 weight gradient of z's, x's and out_proj's blocks is its rank's slice.
-The numbers the sharded step gives are held to the single process by
-``tests/test_torch_parallel.py``.
+Under ``sp`` (one dry run per arch, jamba cut to one super-block), the
+gated norm and out_proj run on each rank's sequence rows
+(``_gate_and_project_rows``), as the reference's partitioner runs them:
+no ``[B, S, d_inner]`` tensor is made, the gated rows are ``[B, S/2,
+d_inner]``, and the RMSNorm kernel's call over d_inner is recorded at that
+shape.  The numbers the sharded step gives are held to the single process
+by ``tests/test_torch_parallel.py``.
 """
 import pytest
 
@@ -21,6 +26,7 @@ torch = pytest.importorskip("torch")
 
 from _torch_parallel_worker import FakeGroup  # noqa: E402
 from repro_torch.configs import reduced_config  # noqa: E402
+from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.launch import cost, dryrun  # noqa: E402
 from repro_torch.launch.mesh import make_debug_mesh  # noqa: E402
 
@@ -53,3 +59,35 @@ def test_mamba_products_and_conv_are_split(arch, monkeypatch):
     assert not [m for m in made if len(m[0]) == 3 and m[0][-1] == proj], "a whole projection"
     assert (B, S + k - 1, ch) not in {m[0] for m in made}, "a whole conv input"
     assert (B, S + k - 1, di // 2) in {m[0] for m in made}  # the conv on each rank's channels
+
+
+@pytest.mark.parametrize("arch, overrides", [("jamba-1.5-large-398b", {"n_layers": 8}),
+                                             ("mamba2-370m", {})])
+def test_gated_norm_and_out_proj_on_sequence_rows_under_sp(arch, overrides, monkeypatch):
+    cfg = reduced_config(arch, ssm_expand=3, **overrides, **KW)
+    di = cfg.d_inner
+    made, norms = [], []
+    add = cost.CostMode._add
+
+    def recorded(self, t):
+        made.append((tuple(t.shape), t.dtype))
+        return add(self, t)
+
+    def observe(name, inputs, outs, attrs):
+        if name == "rmsnorm":
+            norms.append(tuple(inputs["x"].shape))
+
+    monkeypatch.setattr(cost.CostMode, "_add", recorded)
+    ops.META_OBSERVERS.append(observe)
+    try:
+        with FakeGroup(8):
+            mesh = make_debug_mesh(8, model=2)
+            res = dryrun.run_cell(arch, "train_4k", False, verbose=False, mesh=mesh, cfg=cfg,
+                                  opts=("sp",))
+    finally:
+        ops.META_OBSERVERS.remove(observe)
+    B, S = 256 // 4, 4096  # the cell's batch split over data 4
+    shapes = {m[0] for m in made}
+    assert res["ok"] and (B, S, di) not in shapes, "a whole gated row"
+    assert (B, S // 2, di) in shapes  # the gated rows, split on the sequence over model 2
+    assert (B, S // 2, di) in norms and (B, S, di) not in norms, sorted(set(norms))

@@ -5,7 +5,9 @@ so no process group outlives a test.
 
 * On a (data 2, model 2) mesh, reduced deepseek-7b (``sp``), mamba2-370m
   (``mamba_heads``), qwen3-moe-30b-a3b (``moe_ep``, and ``moe_a2a``) and
-  jamba-1.5-large-398b (attention, Mamba and the placed MoE):
+  jamba-1.5-large-398b (attention, Mamba and the placed MoE; with ``sp``,
+  the gated norm and out_proj on the sequence rows, also with the
+  placements the model takes on torch below 2.13):
   prefill logits, loss and every grad leaf of the sharded run equal the
   single-process port's within 1e-5 of each tensor's largest magnitude
   (fp32; the sums run in another order).  Under ``moe_a2a`` the aux loss
