@@ -1,9 +1,12 @@
 """DTensor helpers that the kernel wrappers and the model share: a tensor
-gathered whole along one dim, and the range of one dim that this rank
-holds.  Neither knows the sharding rules (``parallel/sharding.py``)."""
+gathered whole along one dim, the range of one dim that this rank holds,
+the placements of a gradient each rank computes from its own shard, a
+local tensor wrapped as a DTensor, and a product with a weight gathered
+whole that keeps only the weight's shard for the backward.  None knows
+the sharding rules (``parallel/sharding.py``)."""
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Sequence, Tuple
 
 import torch
 from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
@@ -34,6 +37,91 @@ def summed_over_splits(placements) -> Tuple:
     its own shard of an input placed as ``placements``: a partial sum on
     every mesh dim that splits the input, whole on the others."""
     return tuple(Partial() if q.is_shard() else Replicate() for q in placements)
+
+
+def partial_where_split(placements, split) -> Tuple:
+    """The placements of the gradient of an input placed as ``placements``
+    that each rank computes from its own part of a result placed as
+    ``split``: a partial sum on every mesh dim where the input is whole
+    and the result split, as the input is elsewhere."""
+    return tuple(Partial() if p == Replicate() and q != Replicate() else p
+                 for p, q in zip(placements, split))
+
+
+def wrap_local(local: torch.Tensor, mesh, placements, shape) -> DTensor:
+    """``local``, this rank's shard of a contiguous tensor of global
+    ``shape`` placed as ``placements``, as a DTensor (no collective)."""
+    stride, n = [], 1
+    for d in reversed(shape):
+        stride.append(n)
+        n *= d
+    return DTensor.from_local(local, mesh, tuple(placements), run_check=False,
+                              shape=torch.Size(shape), stride=tuple(reversed(stride)))
+
+
+def product_with_gathered(a: DTensor, w: DTensor, split: Optional[Sequence[int]] = None):
+    """``a @ w`` for ``a [..., K]`` split on its rows and a weight ``w [K,
+    E]``, each rank's rows against ``w`` gathered whole (an all-gather of
+    a weight, not of an activation); the output is placed as ``a``.  Only
+    ``w``'s shard is saved: the backward gathers it again, as XLA gathers
+    a weight once for the forward and once for the backward.  ``w``'s
+    gradient, each rank's partial sum over its rows, is reduce-scattered
+    to ``w``'s own split.  With ``split`` (column counts summing to E), the
+    products with each block of w's columns, each its own tensor: a later
+    op that keeps one block keeps it alone."""
+    blocks = tuple(split) if split is not None else (w.shape[1],)
+    out = _GatheredProduct.apply(a, w, blocks, _SavedForProduct.apply(a, w))
+    return out if split is not None else out[0]
+
+
+class _SavedForProduct(torch.autograd.Function):
+    """Saves ``(a, w)`` for ``_GatheredProduct``, before the product runs:
+    a rematerialised block's recompute stops once every tensor the block
+    saves is saved again, so that, as before an aten product (which saves
+    its inputs before it computes), it need not compute the product.
+    Returns an empty token that carries this node to the product."""
+
+    @staticmethod
+    def forward(ctx, a, w):
+        ctx.set_materialize_grads(False)
+        ctx.save_for_backward(a, w)
+        return torch.empty(0, device=a.device)
+
+    @staticmethod
+    def backward(ctx, _):
+        return None, None
+
+
+class _GatheredProduct(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, a, w, blocks, token):
+        ctx.saved = token.grad_fn  # the _SavedForProduct node
+        al, mesh = a.to_local(), a.device_mesh
+        rows = al.reshape(-1, w.shape[0])
+        return tuple(
+            wrap_local((rows @ wb).view(*al.shape[:-1], -1), mesh, a.placements, (*a.shape[:-1], n))
+            for wb, n in zip(_gathered(w).split(blocks, dim=1), blocks))
+
+    @staticmethod
+    def backward(ctx, *gs):
+        a, w = ctx.saved.saved_tensors
+        mesh, (K, E) = a.device_mesh, w.shape
+        al = a.to_local()
+        parts = [g.redistribute(mesh, a.placements).to_local() for g in gs]
+        gl = (parts[0] if len(parts) == 1 else torch.cat(parts, dim=-1)).reshape(-1, E)
+        ga = gw = None
+        if ctx.needs_input_grad[0]:
+            ga = wrap_local((gl @ _gathered(w).T).view(al.shape), mesh, a.placements, a.shape)
+        if ctx.needs_input_grad[1]:
+            sums = summed_over_splits(a.placements)
+            gw = wrap_local(al.reshape(-1, K).T @ gl, mesh, sums, w.shape).redistribute(
+                mesh, tuple(q if q.is_shard() else s for q, s in zip(w.placements, sums)))
+        return ga, gw, None, None
+
+
+def _gathered(w: DTensor) -> torch.Tensor:
+    """The local copy of ``w`` gathered whole on every mesh dim."""
+    return w.redistribute(w.device_mesh, (Replicate(),) * w.device_mesh.ndim).to_local()
 
 
 def local_range(t: DTensor, dim: int) -> Tuple[int, int]:

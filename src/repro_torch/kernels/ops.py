@@ -37,9 +37,10 @@ of a plain CUDA tensor:
   ``local_map``, with the placements the kernel allows: RMSNorm any that
   does not split the normalised axis; flash attention batch or heads
   (q's and k/v's alike), or q's sequence (``sp``), for which k and v are
-  first gathered to the whole sequence; the SSD scan batch or heads.  Any
-  other placement raises: nothing is replicated quietly, and nothing
-  falls back to the plain version.
+  first gathered to the whole sequence; the SSD scan batch, heads or
+  sequence (``sp``: each rank's rows scanned from the state the rows
+  before them leave, ``_ssd_rows``).  Any other placement raises: nothing
+  is replicated quietly, and nothing falls back to the plain version.
 """
 from __future__ import annotations
 
@@ -47,10 +48,10 @@ from collections.abc import Mapping
 from typing import Callable, Dict, Iterator, List, Optional, Sequence, Tuple
 
 import torch
-from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+from torch.distributed.tensor import DTensor, Replicate, Shard
 from torch.distributed.tensor.experimental import local_map
 
-from ..dtensor_util import local_range, unsplit
+from ..dtensor_util import local_range, partial_where_split, unsplit, wrap_local
 from . import _build, ref
 
 LAUNCHES: Dict[str, int] = {"rmsnorm": 0, "flash_attention": 0, "ssd_scan": 0}
@@ -154,11 +155,7 @@ def _grad_placements(inputs, out) -> Tuple:
     dim on which the output is split gets, from each rank, the gradient
     of that rank's part alone, a partial sum; elsewhere its gradient is
     placed as the input is."""
-    return tuple(
-        None if p is None else tuple(
-            Partial() if a == Replicate() and b != Replicate() else a for a, b in zip(p, out))
-        for p in inputs
-    )
+    return tuple(None if p is None else partial_where_split(p, out) for p in inputs)
 
 
 def _check_launch(name: str, err: int) -> None:
@@ -572,15 +569,19 @@ def ssd_scan(
 
 
 def _ssd_dtensor(x: DTensor, dt, A, Bm, Cm, chunk, init_state, out_dtype):
-    """Each rank scans its own batch rows or heads.  On a mesh dim that
-    splits heads, B and C stay whole and A is split like x's heads (a
-    local slice of the replicated A: no transfer)."""
-    _check_placements("ssd_scan x", x, (Replicate(), Shard(0), Shard(2)))
+    """Each rank scans its own batch rows, heads or sequence rows.  On a
+    mesh dim that splits heads, B and C stay whole and A is split like x's
+    heads (a local slice of the replicated A: no transfer).  On one that
+    splits the sequence (``sp``), dt, B and C are split alike, A and the
+    initial state stay whole, and each rank starts from the state of the
+    rows before its own (``_ssd_rows``); the final state is then whole on
+    that mesh dim."""
+    _check_placements("ssd_scan x", x, (Replicate(), Shard(0), Shard(1), Shard(2)))
     mesh, xp = x.device_mesh, x.placements
-    pick = lambda batch, heads: tuple(  # noqa: E731
-        {Shard(0): batch, Shard(2): heads}.get(p, Replicate()) for p in xp)
-    want = {"dt": pick(Shard(0), Shard(2)), "A": pick(Replicate(), Shard(0)),
-            "B": pick(Shard(0), Replicate()), "C": pick(Shard(0), Replicate()),
+    pick = lambda batch, heads, seq=Replicate(): tuple(  # noqa: E731
+        {Shard(0): batch, Shard(1): seq, Shard(2): heads}.get(p, Replicate()) for p in xp)
+    want = {"dt": pick(Shard(0), Shard(2), Shard(1)), "A": pick(Replicate(), Shard(0)),
+            "B": pick(Shard(0), Replicate(), Shard(1)), "C": pick(Shard(0), Replicate(), Shard(1)),
             "init_state": pick(Shard(0), Shard(1)), "y": xp}
     A = A.redistribute(mesh, want["A"]) if A.placements != want["A"] else A
     for what, t in (("dt", dt), ("B", Bm), ("C", Cm), ("init_state", init_state)):
@@ -591,8 +592,10 @@ def _ssd_dtensor(x: DTensor, dt, A, Bm, Cm, chunk, init_state, out_dtype):
             )
     state_p = pick(Shard(0), Shard(1))
     DTENSOR_CALLS["ssd_scan"] += 1
-    inputs = (xp, want["dt"], want["A"], want["B"], want["C"],
-              state_p if init_state is not None else None)
+    inputs = (xp, want["dt"], want["A"], want["B"], want["C"])
+    if Shard(1) in xp:
+        return _ssd_rows(x, dt, A, Bm, Cm, chunk, init_state, out_dtype, inputs, state_p)
+    inputs += (state_p if init_state is not None else None,)
     return local_map(
         lambda x_, dt_, A_, B_, C_, s_: ssd_scan(x_, dt_, A_, B_, C_, chunk, s_, out_dtype),
         out_placements=(xp, state_p),
@@ -600,6 +603,133 @@ def _ssd_dtensor(x: DTensor, dt, A, Bm, Cm, chunk, init_state, out_dtype):
         in_grad_placements=_grad_placements(inputs, xp),
         device_mesh=mesh,
     )(x, dt, A, Bm, Cm, init_state)
+
+
+def _ssd_rows(x: DTensor, dt, A, Bm, Cm, chunk, init_state, out_dtype, inputs, state_p):
+    """The scan of x split on its sequence over one mesh dim: each rank
+    first takes the final state h_r of its own rows scanned from a zero
+    state and their decay d_r = exp(A * sum(dt)) per (batch row, head)
+    (``_RowsState``: one contraction over the rows); ``_CarryStates``
+    gives each rank the state
+    its rows start from, u_r (u_0 the initial state, u_{r+1} = d_r u_r +
+    h_r); then one launch of the kernel scans the rows from u_r.  Returns
+    (y placed as x, the whole sequence's final state u_m, alike on every
+    rank of that mesh dim)."""
+    mesh, xp = x.device_mesh, x.placements
+    seq = [i for i, p in enumerate(xp) if p == Shard(1)]
+    if len(seq) > 1:
+        raise ValueError(f"ssd_scan: x {xp} splits the sequence over more than one mesh dim")
+    # one entry a rank of the sequence split, stacked in front: [m, B, H(, N, P)]
+    per_rank = tuple(Shard(0) if i == seq[0] else Shard(p.dim + 1) if p.is_shard() else p
+                     for i, p in enumerate(state_p))
+    grads = _grad_placements(inputs, xp)
+    h, d = local_map(
+        lambda x_, dt_, A_, B_: tuple(t[None] for t in _RowsState.apply(x_, dt_, A_, B_)),
+        out_placements=(per_rank, per_rank), in_placements=inputs[:4],
+        in_grad_placements=grads[:4], device_mesh=mesh,
+    )(x, dt, A, Bm)
+    start, end = _CarryStates.apply(h, d, init_state, seq[0], state_p)
+    y = local_map(
+        lambda x_, dt_, A_, B_, C_, s_: ssd_scan(x_, dt_, A_, B_, C_, chunk, s_[0], out_dtype)[0],
+        out_placements=(xp,), in_placements=inputs + (per_rank,),
+        in_grad_placements=grads + (per_rank,), device_mesh=mesh,
+    )(x, dt, A, Bm, Cm, start)
+    return y, end
+
+
+def _weighted_rows(x, dt, A):
+    """(wx, d) for rows x [B,S,H,P] from a zero state: each row's x
+    weighted by its decay to the end of the rows and its dt, exp(a_S - a_t)
+    dt_t x_t with a the running sum of dt A over the rows, and the rows'
+    decay exp(a_S) [B,H]; fp32, elementwise."""
+    a = torch.cumsum(dt * A, dim=1)
+    last = a[:, -1]
+    return x.float() * (torch.exp(last[:, None] - a) * dt)[..., None], torch.exp(last)
+
+
+class _RowsState(torch.autograd.Function):
+    """(h, d): the final state [B,H,N,P] of rows x [B,S,H,P] scanned from a
+    zero state, sum_t B_t (x) wx_t (``_weighted_rows``), and the rows' decay.
+    One contraction over the rows, two in the backward (h's gradient
+    against B and against wx); the elementwise weights are recomputed
+    there from the inputs, which the scan of the same rows saves anyway,
+    so that no fp32 product of the rows is kept."""
+
+    @staticmethod
+    def forward(ctx, x, dt, A, Bm):
+        ctx.set_materialize_grads(False)
+        ctx.save_for_backward(x, dt, A, Bm)
+        wx, d = _weighted_rows(x, dt, A)
+        return torch.einsum("bsn,bshp->bhnp", Bm.float(), wx).contiguous(), d
+
+    @staticmethod
+    def backward(ctx, gh, gd):
+        x, dt, A, Bm = ctx.saved_tensors
+        needs = ctx.needs_input_grad
+        with torch.enable_grad():
+            live = [t.detach().requires_grad_(n) for t, n in zip((x, dt, A), needs[:3])]
+            wx, d = _weighted_rows(*live)
+        gB = g_wx = None
+        if gh is not None:
+            g_wx = torch.einsum("bsn,bhnp->bshp", Bm.float(), gh)
+            if needs[3]:
+                gB = torch.einsum("bshp,bhnp->bsn", wx.detach(), gh).to(Bm.dtype)
+        pairs = [(o, g) for o, g in ((wx, g_wx), (d, gd)) if g is not None]
+        wrt = [t for t, n in zip(live, needs[:3]) if n]
+        got = iter(torch.autograd.grad([o for o, _ in pairs], wrt, [g for _, g in pairs],
+                                       allow_unused=True) if pairs and wrt else [None] * len(wrt))
+        return tuple(next(got) if n else None for n in needs[:3]) + (gB,)
+
+
+class _CarryStates(torch.autograd.Function):
+    """The states the ranks of a sequence split start from.  Inputs: each
+    rank's own final state h [m, B, H, N, P] and decay d [m, B, H], stacked
+    over the m ranks of mesh dim ``dim``, and the initial state (None:
+    zeros).  Outputs: u_r stacked as h, and u_m placed ``state_p``, which
+    every rank of ``dim`` computes alike.  The forward gathers the m
+    states, [B, H, N, P] fp32 a rank, and frees them on return; only the
+    decays and the rank's own u_r are saved.  The backward gathers the
+    gradients of the u_r and runs the adjoint recursion from u_m's,
+    l_m = g_m, l_r = g_r + d_r l_{r+1}: h_r's gradient is l_{r+1}, d_r's
+    the sum of l_{r+1} u_r over (N, P), the initial state's l_0."""
+
+    @staticmethod
+    def forward(ctx, h, d, init, dim, state_p):
+        ctx.set_materialize_grads(False)
+        mesh = h.device_mesh
+        r = mesh.get_coordinate()[dim]
+        hs, ds = unsplit(h, 0).to_local(), unsplit(d, 0).to_local()
+        u = init.to_local().clone() if init is not None else torch.zeros_like(hs[0])
+        for t in range(hs.shape[0]):
+            if t == r:
+                mine = u
+            u = ds[t][..., None, None] * u + hs[t]
+        ctx.save_for_backward(ds, mine)
+        ctx.mesh, ctx.r = mesh, r
+        ctx.placed = ((h.placements, h.shape), (d.placements, d.shape), (state_p, h.shape[1:]))
+        return (wrap_local(mine[None], mesh, h.placements, h.shape),
+                wrap_local(u, mesh, state_p, h.shape[1:]))
+
+    @staticmethod
+    def backward(ctx, g_start, g_end):
+        ds, mine = ctx.saved_tensors
+        mesh, (hp, dp, sp) = ctx.mesh, ctx.placed
+        lam = g_end.redistribute(mesh, sp[0]).to_local() if g_end is not None else torch.zeros_like(mine)
+        gs = unsplit(g_start.redistribute(mesh, hp[0]), 0).to_local() if g_start is not None else None
+
+        def back(t, lam):  # l_t from l_{t+1}
+            return ds[t][..., None, None] * lam + (gs[t] if gs is not None else 0)
+
+        for t in range(ds.shape[0] - 1, ctx.r, -1):
+            lam = back(t, lam)
+        g_h = wrap_local(lam[None], mesh, *hp)
+        g_d = wrap_local((lam * mine).sum((-2, -1))[None], mesh, *dp)
+        g_init = None
+        if ctx.needs_input_grad[2]:
+            for t in range(ctx.r, -1, -1):
+                lam = back(t, lam)
+            g_init = wrap_local(lam, mesh, *sp)
+        return g_h, g_d, g_init, None, None
 
 
 class _SSDScan(torch.autograd.Function):

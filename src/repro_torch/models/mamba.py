@@ -23,9 +23,10 @@ column blocks of in_proj, each split over `model` (x on head boundaries),
 so each weight gradient is a local product; the conv runs on each rank's
 channels, and then B and C are gathered whole for the scan; y is split
 again after the gated norm, so out_proj's product is row-parallel.  Under
-``sp`` the gated norm and out_proj run on each rank's sequence rows
-instead, out_proj gathered whole (``_gate_and_project_rows``).  Plain
-tensors take the code path the JAX parity tests hold.
+``sp``, where `model` splits the sequence, the whole block runs on each
+rank's sequence rows instead (``_rows_mix``, ``_gate_and_project_rows``),
+as the reference's compiled step runs it.  Plain tensors take the code
+path the JAX parity tests hold.
 """
 from __future__ import annotations
 
@@ -40,7 +41,7 @@ from ..configs.base import ArchConfig
 from ..kernels import ops
 from ..parallel import opt_flags
 from ..parallel import sharding as sh
-from ..dtensor_util import summed_over_splits, unsplit
+from ..dtensor_util import partial_where_split, product_with_gathered, unsplit
 from . import layers as L
 
 Params = Dict[str, Any]
@@ -73,13 +74,18 @@ def _split_proj(cfg: ArchConfig, proj: torch.Tensor):
     return proj[..., :di], proj[..., di : 2 * di + 2 * N], proj[..., 2 * di + 2 * N :]
 
 
-def _causal_conv(xbc: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+def _causal_conv(
+    xbc: torch.Tensor, w: torch.Tensor, b: torch.Tensor, halo: Optional[torch.Tensor] = None
+) -> torch.Tensor:
     """silu of the depthwise causal conv over the sequence, in fp32.
-    xbc [B,S,Ch] (zero-padded by k-1 on the left), w [k,Ch], b [Ch]."""
+    xbc [B,S,Ch], left-padded by ``halo`` [B,k-1,Ch], the k-1 rows before
+    it (default zeros), w [k,Ch], b [Ch]."""
     k, (B, S, Ch) = w.shape[0], xbc.shape
     # zeros concatenated, not F.pad: DTensor's pad on a 2-D mesh gives a
     # result placed on one mesh dim (torch 2.11), which the next view rejects
-    xp = torch.cat([xbc.new_zeros((B, k - 1, Ch), dtype=torch.float32), xbc.float()], dim=1)
+    if halo is None:
+        halo = xbc.new_zeros((B, k - 1, Ch), dtype=torch.float32)
+    xp = torch.cat([halo.float(), xbc.float()], dim=1)
     wf = w.float()
     out = b.float() + xp[:, :S] * wf[0]
     for i in range(1, k):
@@ -99,7 +105,7 @@ def _gate_and_project(
     instead (``_gate_and_project_rows``)."""
     B, S, di = y.shape
     g = y * F.silu(z)
-    if isinstance(g, DTensor) and opt_flags.get("sp") and sh.maybe(g.device_mesh, S, "model"):
+    if _on_rows(g):
         return _gate_and_project_rows(p, g)
     # the norm needs all of d_inner: gathered where tensor parallelism split it
     y = L.rms_norm(unsplit(g, -1), p["norm"])
@@ -114,21 +120,20 @@ def _gate_and_project(
 
 def _gate_and_project_rows(p: Params, g: DTensor) -> DTensor:
     """``_gate_and_project`` of the gated rows ``g [B,S,di]`` under ``sp``,
-    as the reference places it: g moved from its d_inner split over
-    `model` to a sequence split (an all-to-all, the same bytes a device),
-    the norm on each rank's whole rows, and the product with out_proj
-    gathered whole over `model` (a weight).  The output ``[B,S,D]`` is
-    split as the ``sp`` residual is, with no partial sums; out_proj's
-    gradient is each rank's partial sum over its rows."""
-    di = g.shape[-1]
-    g = L.rms_norm(_on_model(g, 1), p["norm"])
-    w = sh.constrain(p["out_proj"], (None, None))
-    rows = g.placements
-    return local_map(
-        lambda a, w_: (a.reshape(-1, di) @ w_).view(*a.shape[:-1], -1),
-        out_placements=(rows,), in_placements=(rows, w.placements),
-        in_grad_placements=(rows, summed_over_splits(rows)), device_mesh=g.device_mesh,
-    )(g, w)
+    split on the sequence as the reference places them: the norm on each
+    rank's whole rows, and the product with out_proj gathered whole over
+    `model` (a weight, gathered again for the backward:
+    ``product_with_gathered``).  The output ``[B,S,D]`` is split as the
+    ``sp`` residual is, with no partial sums; out_proj's gradient is each
+    rank's partial sum over its rows, reduce-scattered to its split."""
+    return product_with_gathered(L.rms_norm(g, p["norm"]), p["out_proj"])
+
+
+def _on_rows(t: torch.Tensor) -> bool:
+    """True for a DTensor ``t [B,S,...]`` under ``sp`` where `model`
+    divides S: the Mamba block then runs on each rank's sequence rows."""
+    return (isinstance(t, DTensor) and bool(opt_flags.get("sp"))
+            and sh.maybe(t.device_mesh, t.shape[1], "model") is not None)
 
 
 def _on_model(t: DTensor, dim: int) -> DTensor:
@@ -189,6 +194,72 @@ def _placed_mix(p: Params, cfg: ArchConfig, x: DTensor):
     return z, xs, bc, dt_raw, x_pre, bc_pre
 
 
+def _rows_before(tails: torch.Tensor, r: int, n: int) -> torch.Tensor:
+    """The ``n`` rows before the rows of rank ``r`` of a sequence split,
+    from ``tails [m,B,t,Ch]``, each rank's last t rows (all its rows where
+    it has fewer than n): zeros before the sequence."""
+    m, B, t, Ch = tails.shape
+    rows = torch.cat([tails.new_zeros((B, n, Ch)), tails[:r].transpose(0, 1).reshape(B, r * t, Ch)], 1)
+    return rows[:, rows.shape[1] - n:]
+
+
+def _conv_rows(t: DTensor, w: DTensor, b: DTensor):
+    """``_causal_conv`` of ``t [B,S,Ch]`` split on its sequence (``sp``),
+    in t's dtype, on each rank's rows with a halo: the k-1 rows before its
+    first, zeros before the sequence, from an all-gather of every rank's
+    last rows (all of them where it has fewer than k-1) and not of the
+    sequence.  ``w [k,Ch]`` and ``b [Ch]`` are whole; their gradients are
+    each rank's partial sums.  Returns (the conv placed as t, window):
+    window() the sequence's last k-1 rows of t, whole on the sequence (a
+    conv cache's window)."""
+    k, (B, S, Ch) = w.shape[0], t.shape
+    mesh, rows = t.device_mesh, t.placements
+    seq = rows.index(Shard(1))
+    r, m = mesh.get_coordinate()[seq], mesh.size(seq)
+    n = min(k - 1, S // m)
+    # each rank's last n rows, stacked in front of the batch: [m, B, n, Ch]
+    per_rank = tuple(Shard(0) if q == Shard(1) else Shard(q.dim + 1) if q.is_shard() else q
+                     for q in rows)
+    tails = unsplit(local_map(lambda a: a[None, :, a.shape[1] - n:], out_placements=(per_rank,),
+                              in_placements=(rows,), device_mesh=mesh)(t), 0)
+    ins = (rows, tails.placements, w.placements, b.placements)
+    out = local_map(
+        lambda a, tl, w_, b_: _causal_conv(a, w_, b_, _rows_before(tl, r, k - 1)).to(a.dtype),
+        out_placements=(rows,), in_placements=ins,
+        in_grad_placements=tuple(partial_where_split(q, rows) for q in ins), device_mesh=mesh,
+    )(t, tails, w, b)
+    whole = tuple(Replicate() if q == Shard(1) else q for q in rows)
+    window = lambda: local_map(  # noqa: E731
+        lambda tl: _rows_before(tl, m, k - 1), out_placements=(whole,),
+        in_placements=(tails.placements,), device_mesh=mesh)(tails)
+    return out, window
+
+
+def _rows_mix(p: Params, cfg: ArchConfig, x: DTensor):
+    """The in_proj product and the causal conv of ``apply_mamba`` on each
+    rank's sequence rows ``[B/data, S/model, D]`` (``sp``), as the
+    reference's compiled step runs them: the product with in_proj gathered
+    whole (``product_with_gathered``: a weight, never saved whole), z, the
+    pre-conv x, B, C and dt the local columns of its output (as
+    ``_split_proj`` cuts them, z a product of its own), and the conv on the
+    rows with a halo (``_conv_rows``).  Returns (z, xh, B, C, dt_raw, window), window() the
+    sequence's last k-1 pre-conv rows (the cache's conv window)."""
+    di, N, H, P = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads, cfg.ssm_head_dim
+    mesh = x.device_mesh
+    x = sh.constrain(x, (sh.batch_axes(mesh, x.shape[0]), "model", None))
+    rows = x.placements
+    on_rows = lambda f, n, t: local_map(  # noqa: E731
+        f, out_placements=(rows,) * n, in_placements=(rows,), device_mesh=mesh)(t)
+    # z its own product: the gate keeps it for the backward, and the rest
+    # need not be kept with it
+    z, rest = product_with_gathered(x, p["in_proj"], (di, p["in_proj"].shape[1] - di))
+    xbc_pre, dt_raw = on_rows(lambda a: (a[..., : di + 2 * N], a[..., di + 2 * N :]), 2, rest)
+    xbc, window = _conv_rows(xbc_pre, p["conv_w"], p["conv_b"])
+    xh, Bm, Cm = on_rows(lambda c: (c[..., :di].unflatten(-1, (H, P)), c[..., di : di + N],
+                                    c[..., di + N :]), 3, xbc)
+    return z, xh, Bm, Cm, dt_raw, window
+
+
 def apply_mamba(
     p: Params,
     cfg: ArchConfig,
@@ -200,7 +271,10 @@ def apply_mamba(
     after the last token."""
     di, N, H, P = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads, cfg.ssm_head_dim
     B, S, D = x.shape
-    if isinstance(x, DTensor):
+    if _on_rows(x):
+        z, xh, Bm, Cm, dt_raw, window = _rows_mix(p, cfg, x)
+        tail = lambda s0: window()[:, s0 - S + cfg.ssm_conv - 1 :]  # noqa: E731
+    elif isinstance(x, DTensor):
         z, xs, bc, dt_raw, x_pre, bc_pre = _placed_mix(p, cfg, x)
         xh, Bm, Cm = xs.view(B, S, H, P), bc[..., :N], bc[..., N:]
         tail = lambda s0: torch.cat([x_pre[:, s0:], bc_pre[:, s0:]], dim=-1)  # noqa: E731

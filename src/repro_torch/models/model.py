@@ -94,6 +94,9 @@ def _unstack(tree: Params, n: int) -> List[Params]:
 # itself; torch 2.11 refuses that view (``dtensor_util.AT_LEAST_2_13``).
 # There a sublayer takes its input gathered on the sequence and hands its
 # output back placed as the residual, so its gradient comes back gathered.
+# The Mamba block takes its rows as the residual is split on either torch:
+# under sp it runs on them (``mamba._rows_mix``); without sp, and in a
+# decode step, the residual is not split on its sequence.
 
 
 def _sequence_whole(t: torch.Tensor) -> torch.Tensor:
@@ -127,11 +130,11 @@ def _apply_sub(
     """One sub-layer; returns (h, aux), aux the MoE load-balance term of
     an ``moe`` ff and None for the others.  ``constrain`` places the
     residual after each of the two adds."""
-    y = _sequence_whole(L.rms_norm(h, sub["ln1"]))
+    y = L.rms_norm(h, sub["ln1"])
     if mixer == "attn":
         # prefill attends over its own k/v; decode over the cache
         y, _ = L.apply_attention(
-            sub["attn"], cfg, y, q_pos,
+            sub["attn"], cfg, _sequence_whole(y), q_pos,
             cache=cache, cache_index=cache_index, self_attend=not decode,
         )
     elif decode:

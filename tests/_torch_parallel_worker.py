@@ -53,6 +53,9 @@ PARITY = {
     # up on each rank's tokens)
     "jamba-1.5-large-398b/sp/below_2_13": ("jamba-1.5-large-398b", ("sp", "below_2_13"),
                                            {"n_layers": 8}),
+    # the Mamba block alone, on each rank's sequence rows under sp
+    # (mamba._rows_mix, the SSD scan split on its sequence)
+    "mamba2-370m/sp": ("mamba2-370m", ("sp",), {}),
     "qwen3-moe-30b-a3b/moe_ep": ("qwen3-moe-30b-a3b", ("moe_ep",), {}),
     # no pair drops at this capacity, as in tests/test_moe_shard_map.py
     "qwen3-moe-30b-a3b/moe_a2a": ("qwen3-moe-30b-a3b", ("moe_a2a",), {"capacity_factor": 8.0}),
@@ -151,10 +154,12 @@ def run_parity(rank: int, out: Path) -> None:
                         for k, v in res.items()})
 
 
-# (arch, batch, prompt length, decode steps): a cache split on its batch,
-# and (one row) a sliding-window ring split on its slots over `data`
-DECODE = {"deepseek-7b/batch": ("deepseek-7b", 2, 12, 3),
-          "h2o-danube-3-4b/slots": ("h2o-danube-3-4b", 1, 64, 3)}
+# (arch, batch, prompt length, decode steps, flags): a cache split on its
+# batch, (one row) a sliding-window ring split on its slots over `data`,
+# and a Mamba cache written by a prefill on each rank's sequence rows (sp)
+DECODE = {"deepseek-7b/batch": ("deepseek-7b", 2, 12, 3, ()),
+          "h2o-danube-3-4b/slots": ("h2o-danube-3-4b", 1, 64, 3, ()),
+          "mamba2-370m/sp": ("mamba2-370m", 2, 16, 3, ("sp",))}
 
 
 def decode_inputs(arch: str, batch: int, prompt: int):
@@ -182,15 +187,15 @@ def serve(model, params, cache, toks, steps):
 
 
 def cache_mesh(cache):
-    k = next(iter(cache.values()))["k"]
-    return k.device_mesh if isinstance(k, DTensor) else None
+    leaf = next(iter(next(iter(cache.values())).values()))
+    return leaf.device_mesh if isinstance(leaf, DTensor) else None
 
 
 def run_decode(rank: int, out: Path) -> None:
     """Prefill and decode on (data 2, model 2) with the cache placed by the
     rules: each step's logits."""
     mesh = make_debug_mesh(4, 2, device_type="cpu")
-    for name, (arch, batch, prompt, steps) in DECODE.items():
+    for name, (arch, batch, prompt, steps, flags) in DECODE.items():
         cfg, params, toks = decode_inputs(arch, batch, prompt)
         model = Model(cfg, device="cpu")
         dparams = sh.distribute(params, sh.param_shardings(cfg, params, mesh), mesh)
@@ -198,10 +203,15 @@ def run_decode(rank: int, out: Path) -> None:
         placements = sh.cache_shardings(cfg, cache, mesh)
         dcache = sh.distribute(cache, placements, mesh)
         dtoks = sh.distribute(toks, sh.to_placements(sh.batch_spec(mesh, toks.shape), mesh), mesh)
-        got = [_full(x).detach().numpy() for x in serve(model, dparams, dcache, dtoks, steps)]
+        set_flags(model, flags, mesh, batch)
+        try:
+            got = [_full(x).detach().numpy() for x in serve(model, dparams, dcache, dtoks, steps)]
+        finally:
+            opt_flags.reset()
+        leaf = "k" if "k" in placements["sub0"] else "ssm"
         if rank == 0:
             np.savez(out / f"decode_{name.replace('/', '__')}.npz", *got,
-                     placements=str(placements["sub0"]["k"]))
+                     placements=str(placements["sub0"][leaf]))
 
 
 def run_ep_vs_jax(rank: int, out: Path) -> None:
@@ -401,6 +411,80 @@ def run_wrappers(rank: int, out: Path) -> None:
         (out / "wrappers_raised.txt").write_text("\n".join(raised))
 
 
+# (batch, rows a rank, chunk): the SSD scan split on its sequence over
+# every rank, each rank's rows a multiple of the chunk and not
+SEQ_SCANS = {"chunk_multiple": (2, 32, 16), "not_chunk_multiple": (2, 12, 16)}
+CONV_ROWS = (1, 2, 3)  # rows a rank of the causal conv split on its sequence
+
+
+def seq_split_inputs(seed: int, *shapes):
+    """fp32 arrays of ``shapes`` drawn from one numpy seed, alike on every rank."""
+    rng = np.random.default_rng(seed)
+    return [torch.from_numpy(rng.standard_normal(s).astype(np.float32)) for s in shapes]
+
+
+def _grads_of(fn, tensors, cotangents):
+    """(outputs of fn(*tensors), the gradients of the sum of each output
+    times its cotangent to every tensor), gathered whole."""
+    live = [t.detach().requires_grad_() for t in tensors]
+    outs = fn(*live)
+    loss = sum((o * c).sum() for o, c in zip(outs, cotangents))
+    return [_full(o).detach() for o in outs] + [_full(g) for g in torch.autograd.grad(loss, live)]
+
+
+def run_seq_split(rank: int, out: Path) -> None:
+    """On (data 1, model WORLD): the SSD scan wrapper with x, dt, B and C
+    split on the sequence (ops._ssd_rows), with and without an initial
+    state, and the causal conv on each rank's rows with its halo
+    (mamba._conv_rows) and its cache window, against the same functions on
+    the whole tensors: outputs and the gradients of a seeded cotangent."""
+    from torch.distributed.tensor import Replicate, Shard, distribute_tensor
+
+    from repro_torch.kernels import ops
+    from repro_torch.models import mamba as M
+
+    world = dist.get_world_size()
+    mesh = make_debug_mesh(world, world, device_type="cpu")
+    rows, whole = (Replicate(), Shard(1)), (Replicate(), Replicate())
+    put = lambda t, p: distribute_tensor(t, mesh, p, src_data_rank=None)  # noqa: E731
+    res = {}
+    H, P, N = 4, 16, 16
+    for name, (B, per, chunk) in SEQ_SCANS.items():
+        S = per * world
+        x, Bm, Cm, gy, h0, gs = seq_split_inputs(6, (B, S, H, P), (B, S, N), (B, S, N),
+                                                 (B, S, H, P), (B, H, N, P), (B, H, N, P))
+        rng = np.random.default_rng(7)
+        dt = torch.from_numpy(rng.uniform(0.01, 0.2, (B, S, H)).astype(np.float32))
+        A = -torch.from_numpy(rng.uniform(0.5, 4.0, H).astype(np.float32))
+        for init in (False, True):
+            ins = (x, dt, A, Bm, Cm) + ((h0,) if init else ())
+            at = (rows, rows, whole, rows, rows, whole)
+            scan = lambda x, dt, A, Bm, Cm, *h: ops.ssd_scan(x, dt, A, Bm, Cm, chunk, *h)  # noqa: E731
+            got = _grads_of(scan, [put(t, p) for t, p in zip(ins, at)], (put(gy, rows), put(gs, whole)))
+            res[f"ssd/{name}/{'init' if init else 'zero'}"] = (got, _grads_of(scan, ins, (gy, gs)))
+    k, Ch = 4, 8
+    for per in CONV_ROWS:
+        S = per * world
+        xbc, w, b, g = seq_split_inputs(8 + per, (2, S, Ch), (k, Ch), (Ch,), (2, S, Ch))
+
+        def placed(xbc, w, b):
+            conv, window = M._conv_rows(xbc, w, b)
+            return conv, window()
+
+        def plain(xbc, w, b):
+            pad = torch.cat([xbc.new_zeros((2, k - 1, Ch)), xbc], 1)
+            return M._causal_conv(xbc, w, b), pad[:, -(k - 1):]
+
+        last = torch.from_numpy(np.random.default_rng(9).standard_normal((2, k - 1, Ch)).astype(np.float32))
+        got = _grads_of(placed, (put(xbc, rows), put(w, whole), put(b, whole)),
+                        (put(g, rows), put(last, whole)))
+        res[f"conv/{per}_rows"] = (got, _grads_of(plain, (xbc, w, b), (g, last)))
+    if rank == 0:
+        np.savez(out / f"seq_split_{world}.npz",
+                 **{f"{k}/got/{i}": t.numpy() for k, (a, _) in res.items() for i, t in enumerate(a)},
+                 **{f"{k}/want/{i}": t.numpy() for k, (_, b) in res.items() for i, t in enumerate(b)})
+
+
 # the cells whose kernel calls the 2x2 run records (reduced jamba, one
 # super-block: attention, Mamba and MoE), and the config's overrides
 CALL_ARCH = ("jamba-1.5-large-398b", {"n_layers": 8})
@@ -485,7 +569,8 @@ def run_call_shapes(rank: int, out: Path) -> None:
 
 CASES = {"parity": run_parity, "wrappers": run_wrappers, "decode": run_decode, "ep_vs_jax": run_ep_vs_jax,
          "elastic_save": run_elastic_save, "elastic_restore": run_elastic_restore,
-         "moe_placed": run_moe_placed, "call_shapes": run_call_shapes}
+         "moe_placed": run_moe_placed, "call_shapes": run_call_shapes,
+         "seq_split": run_seq_split}
 
 
 def _rank(rank: int, case: str, world: int, out: str) -> None:

@@ -24,10 +24,11 @@ against the JAX package's.
   report adds up: the ops' FLOPs to the cell's, the storages live at the
   peak (the softmax backward's scratch among them) to its peak.
 * Under ``sp``, reduced jamba-1.5-large-398b ``train_4k`` on the fake
-  (4, 2) mesh peaks below the count it had while the gated norm gathered
-  its rows whole, its FLOPs within 1 % of that count; reduced deepseek-7b
-  (no Mamba block) counts its recorded peak and FLOPs exactly, with and
-  without ``sp``.
+  (4, 2) mesh (one dry run, shared) peaks below the count it had while
+  the gated norm gathered its rows whole, and below the count it had
+  while the Mamba block gathered its input whole on the sequence, its
+  FLOPs within 1 % of each; reduced deepseek-7b (no Mamba block) counts
+  its recorded peak and FLOPs exactly, with and without ``sp``.
 
 The reduced configs run at head_dim 64 and in bf16, widths the card's
 kernels take (on the meta device the wrappers check what they take).
@@ -293,6 +294,9 @@ def test_ring_positions_hold_the_latest_position_of_each_slot():
 # counted while the gated norm gathered y * silu(z) whole over `model`
 # (before mamba._gate_and_project_rows): (peak bytes, FLOPs)
 JAMBA_SP_WHOLE_ROWS = (38589130240, 6877052141568)
+# the same, counted while the Mamba block gathered its input whole on the
+# sequence for in_proj and the conv (before mamba._rows_mix)
+JAMBA_SP_WHOLE_INPUT = (38454945280, 6875173093376)
 # Reduced deepseek-7b x train_4k on the same mesh, with and without sp: a
 # cell with no Mamba block, which the gated norm's placement leaves alone
 DEEPSEEK_TRAIN = {("sp",): (34951463424, 5661068886016), (): (35018572288, 5661370875904)}
@@ -307,9 +311,21 @@ def _reduced_train_cell(arch, opts):
     return res["peak_memory_bytes"], res["flops"]
 
 
-def test_sp_gated_rows_lower_the_hybrid_train_peak():
-    peak, flops = _reduced_train_cell("jamba-1.5-large-398b", ("sp",))
+@pytest.fixture(scope="module")
+def jamba_sp():
+    return _reduced_train_cell("jamba-1.5-large-398b", ("sp",))
+
+
+def test_sp_gated_rows_lower_the_hybrid_train_peak(jamba_sp):
+    peak, flops = jamba_sp
     before_peak, before_flops = JAMBA_SP_WHOLE_ROWS
+    assert peak < before_peak, (peak, before_peak)
+    assert abs(flops - before_flops) <= 0.01 * before_flops, (flops, before_flops)
+
+
+def test_sp_mamba_rows_lower_the_hybrid_train_peak(jamba_sp):
+    peak, flops = jamba_sp
+    before_peak, before_flops = JAMBA_SP_WHOLE_INPUT
     assert peak < before_peak, (peak, before_peak)
     assert abs(flops - before_flops) <= 0.01 * before_flops, (flops, before_flops)
 

@@ -4,10 +4,10 @@ JAX package.  The ranks run in subprocesses (tests/_torch_parallel_worker.py),
 so no process group outlives a test.
 
 * On a (data 2, model 2) mesh, reduced deepseek-7b (``sp``), mamba2-370m
-  (``mamba_heads``), qwen3-moe-30b-a3b (``moe_ep``, and ``moe_a2a``) and
-  jamba-1.5-large-398b (attention, Mamba and the placed MoE; with ``sp``,
-  the gated norm and out_proj on the sequence rows, also with the
-  placements the model takes on torch below 2.13):
+  (``mamba_heads``, and ``sp``), qwen3-moe-30b-a3b (``moe_ep``, and
+  ``moe_a2a``) and jamba-1.5-large-398b (attention, Mamba and the placed
+  MoE; with ``sp``, the whole Mamba block on the sequence rows, also with
+  the placements the model takes on torch below 2.13):
   prefill logits, loss and every grad leaf of the sharded run equal the
   single-process port's within 1e-5 of each tensor's largest magnitude
   (fp32; the sums run in another order).  Under ``moe_a2a`` the aux loss
@@ -16,8 +16,13 @@ so no process group outlives a test.
   cross-entropy are held; with the batch's two shards the same rows, the
   loss and grads too.
 * Prefill and decode with the cache placed by the rules (split on its
-  batch, or a sliding-window ring split on its slots) equal the single
-  process's within 1e-5.
+  batch, or a sliding-window ring split on its slots, or a Mamba cache
+  written from the sequence rows under ``sp``) equal the single process's
+  within 1e-5.
+* The SSD scan wrapper with its sequence split over 2 and 4 ranks, with
+  and without an initial state, and the causal conv on 1, 2 and 3 rows a
+  rank with its halo, equal the wrapper and the conv on whole tensors
+  within 1e-5, outputs and gradients.
 * Each kernel wrapper on DTensors (every placement the kernels take)
   equals the wrapper on whole tensors exactly; the placements they must
   refuse raise.
@@ -45,8 +50,8 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from _torch_parallel_worker import (  # noqa: E402
-    CALL_ARCH, CALL_CELLS, DECODE, PARITY, FakeGroup, decode_inputs, elastic_state, parity_inputs,
-    serve,
+    CALL_ARCH, CALL_CELLS, CONV_ROWS, DECODE, PARITY, SEQ_SCANS, FakeGroup, decode_inputs,
+    elastic_state, parity_inputs, serve,
 )
 from torch.distributed.device_mesh import init_device_mesh  # noqa: E402
 from torch.distributed.tensor import distribute_tensor  # noqa: E402
@@ -81,8 +86,8 @@ def _worker(cases, world, out):
 @pytest.fixture(scope="module")
 def runs(tmp_path_factory):
     out = tmp_path_factory.mktemp("gloo")
-    _worker("parity,wrappers,decode,elastic_save,call_shapes", 4, out)
-    _worker("elastic_restore", 2, out)
+    _worker("parity,wrappers,decode,elastic_save,call_shapes,seq_split", 4, out)
+    _worker("elastic_restore,seq_split", 2, out)
     return out
 
 
@@ -109,13 +114,15 @@ def test_sharded_run_equals_single_process(runs, case):
                 continue
             _close(got[f"{tag}/{k}"], v.detach().numpy(), f"{case} {tag} {k}")
         assert len(want) == 3 + len(leaves_with_paths(params))
-        # every scan (prefill, loss, remat) takes its heads split over `model`
-        # (the Mamba block places x on head boundaries, with or without
-        # mamba_heads), its batch over `data`
+        # every scan (prefill, loss, remat) takes its batch over `data` and
+        # over `model` its heads (the Mamba block places x on head
+        # boundaries, with or without mamba_heads) or, under sp, its
+        # sequence rows (the block runs on them)
         scans = set(got[f"{tag}/scan_x"].tolist())
         n_mamba = cfg.n_scan_blocks * sum(m == "mamba" for m, _ in cfg.layer_kinds())
         assert len(got[f"{tag}/scan_x"]) == 3 * n_mamba, scans
-        assert scans == ({"(Shard(dim=0), Shard(dim=2))"} if n_mamba else set()), scans
+        split = "(Shard(dim=0), Shard(dim=1))" if "sp" in flags else "(Shard(dim=0), Shard(dim=2))"
+        assert scans == ({split} if n_mamba else set()), scans
 
 
 @pytest.mark.parametrize("case", list(DECODE))
@@ -124,9 +131,11 @@ def test_sharded_serving_equals_single_process(runs, case):
     split on its batch over `data` (deepseek-7b, 2 rows), or, one row,
     a sliding-window ring split on its slots over `data` and on its KV
     heads over `model` (h2o-danube-3-4b: a 64-token prompt over a 32-slot
-    ring, then steps across it).  Each step's logits within 1e-5 of the
-    single process's."""
-    arch, batch, prompt, steps = DECODE[case]
+    ring, then steps across it), or a Mamba cache on its batch and heads,
+    its conv window and state written by a prefill on each rank's
+    sequence rows (mamba2-370m, ``sp``).  Each step's logits within 1e-5
+    of the single process's."""
+    arch, batch, prompt, steps, _ = DECODE[case]
     got = np.load(runs / f"decode_{case.replace('/', '__')}.npz")
     cfg, params, toks = decode_inputs(arch, batch, prompt)
     model = Model(cfg, device="cpu")
@@ -135,7 +144,8 @@ def test_sharded_serving_equals_single_process(runs, case):
     for i, w in enumerate(want):
         _close(got[f"arr_{i}"], w.detach().numpy(), f"{case} step {i}")
     split = {"deepseek-7b/batch": "(Shard(dim=1), Shard(dim=3))",  # [n, B, W, G, K]
-             "h2o-danube-3-4b/slots": "(Shard(dim=2), Shard(dim=3))"}[case]
+             "h2o-danube-3-4b/slots": "(Shard(dim=2), Shard(dim=3))",
+             "mamba2-370m/sp": "(Shard(dim=1), Shard(dim=2))"}[case]  # ssm [n, B, H, N, P]
     assert str(got["placements"]) == split
 
 
@@ -148,6 +158,27 @@ def test_kernel_wrappers_on_dtensors(runs):
     raised = (runs / "wrappers_raised.txt").read_text().split("\n")
     assert raised == ["rmsnorm D split", "rmsnorm partial", "flash head dim split",
                       "ssd state split"]
+
+
+@pytest.mark.parametrize("world", [2, 4])
+@pytest.mark.parametrize("case", [f"ssd/{name}/{start}" for name in SEQ_SCANS
+                                  for start in ("zero", "init")]
+                         + [f"conv/{n}_rows" for n in CONV_ROWS])
+def test_sequence_split_equals_whole_tensors(runs, world, case):
+    """On (data 1, model WORLD), x, dt, B and C split on the sequence:
+    the SSD scan wrapper (``ops._ssd_rows``: each rank's rows scanned from
+    the state of the ranks before it) gives y, the final state and the
+    gradients of a seeded cotangent to x, dt, A, B, C (and the initial
+    state) within 1e-5 of the wrapper on the whole tensors, each rank's
+    rows a multiple of the chunk (32 of 16) and not (12); the causal conv
+    on 1, 2 and 3 rows a rank with its halo (``mamba._conv_rows``) gives
+    the conv, the cache's window and the gradients to x, w and b of the
+    conv on the whole sequence."""
+    got = np.load(runs / f"seq_split_{world}.npz")
+    n = sum(k.startswith(f"{case}/got/") for k in got.files)
+    assert n == (5 if case.startswith("conv") else 7 + case.endswith("init")), n
+    for i in range(n):
+        _close(got[f"{case}/got/{i}"], got[f"{case}/want/{i}"], f"{case} {i}")
 
 
 @pytest.mark.parametrize("kind", list(CALL_CELLS))
