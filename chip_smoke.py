@@ -128,12 +128,13 @@ Phases (any failure exits non-zero):
                 (each arch at each of its shapes, 32; the train cells under
                 sp) on a fake 16x16 mesh (256 ranks), started in three
                 spawned worker processes when the run begins and collected
-                here, a line per cell: fits_h100 (which every cell must but
-                those OVER_H100 records under this torch, held at their
-                recorded peak), the
-                per-device peak, FLOPs, collective bytes, the bottleneck,
-                and each distinct kernel call the cell hands a device, at
-                its local shapes.  Every
+                here, a line per cell: fits_h100 (which every cell must),
+                the per-device peak, FLOPs, collective bytes, the
+                bottleneck, and each distinct kernel call the cell hands a
+                device, at its local shapes; each train cell's peak and
+                FLOPs within TRAIN_RECORD_TOL of torch 2.13's count
+                (TRAIN_RECORD_2_13), whatever torch runs, and DRYRUN_CALLS
+                distinct calls over the cells.  Every
                 distinct call of these cells is replayed on the card from
                 seeded inputs at those shapes against its plain version
                 (row error within PLAIN_TOL), with the route the launch
@@ -2288,21 +2289,35 @@ class EveryCell:
 
 
 # The dry run of every cell on the fake 16x16 mesh, the train cells under sp
-# (dryrun_opts); each must fit one H100 but those of OVER_H100, and every
+# (dryrun_opts); each must fit one H100, and every
 # distinct kernel call they hand a device is replayed on the card
 # (replay_phase).  The cells run in DRYRUN_WORKERS spawned processes from the
 # start of the run (BackgroundDryRuns), beside the card phases.
 DRYRUN_CELLS = EveryCell()
 DRYRUN_WORKERS = 3
-# cells whose per-device peak is above 80 GB with every tensor where the
-# reference places it, under the torch versions (major.minor) that put them
-# there, held within PEAK_RECORD_TOL of the peak the dry run counts for
-# them under each, in bytes (PERF.md, ROADMAP.md A10); under any other
-# torch they must fit.  Below 2.13 the model keeps the attention, MLP and
-# MoE sublayers' inputs gathered on the sequence
-# (repro_torch.dtensor_util.AT_LEAST_2_13)
-OVER_H100 = {("jamba-1.5-large-398b", "train_4k"): {"2.11": 83467321856}}
-PEAK_RECORD_TOL = 0.01
+# Each train cell's (peak bytes, FLOPs) a device on 16x16 under sp, as torch
+# 2.13 counts them on the CPU: `python -m repro_torch.launch.dryrun --arch A
+# --shape train_4k --opt sp` on torch 2.13.0+cpu at commit fcfe671 (PERF.md,
+# PR 29).  The dry run of any torch must count them within TRAIN_RECORD_TOL:
+# below 2.13 the model runs its products on the sequence rows as 2.13 places
+# them (repro_torch.models.layers.on_sequence_rows), so the card's torch 2.11
+# counts what 2.13 counts (ROADMAP.md C9).
+TRAIN_RECORD_2_13 = {
+    ("deepseek-7b", "train_4k"): (10322267136, 239409597251584),
+    ("granite-34b", "train_4k"): (19245313024, 1173077002027008),
+    ("h2o-danube-3-4b", "train_4k"): (9959864832, 147981147832320),
+    ("hubert-xlarge", "train_4k"): (5035416576, 49154579496960),
+    ("jamba-1.5-large-398b", "train_4k"): (77427523072, 3443510699098112),
+    ("llava-next-mistral-7b", "train_4k"): (10877611008, 260469700952064),
+    ("mamba2-370m", "train_4k"): (3753536512, 13198988148736),
+    ("moonshot-v1-16b-a3b", "train_4k"): (12721892864, 172973398949888),
+    ("qwen3-32b", "train_4k"): (22232419328, 1148923162918912),
+    ("qwen3-moe-30b-a3b", "train_4k"): (14546990080, 184138971742208),
+}
+TRAIN_RECORD_TOL = 0.01
+# the distinct kernel calls of the 32 cells a device gets, on torch 2.13
+# (the same run) and, since C9's repair, on 2.11
+DRYRUN_CALLS = 67
 # The cells run on the card, on a (1, 1) mesh: (arch, shape, batch cut to
 # (None: not cut), layers cut to (None: not cut), opts, launches a step by
 # kernel, route, head dim and mask, the cut as PERF.md states it).
@@ -2383,7 +2398,8 @@ class BackgroundDryRuns:
     def results(self):
         """Each cell's result, one line each and one for the distinct
         kernel calls it hands a device; then every cell is held: ok, and
-        fits_h100 or the peak OVER_H100 records under this torch."""
+        fits_h100, and a train cell's peak and FLOPs those of
+        TRAIN_RECORD_2_13."""
         import torch
 
         results, waited = [], time.perf_counter()
@@ -2405,15 +2421,14 @@ class BackgroundDryRuns:
         log(f"parallel: dry run of {len(results)} cells in {DRYRUN_WORKERS} workers, "
             f"{now - self.t0:.1f} s after they started, {now - waited:.1f} s of it waited for here; "
             f"{sum(r['s'] or 0 for r in results):.1f} s of host time")
-        version = ".".join(torch.__version__.split(".")[:2])
         for (arch, shape, _), r in zip(self.cells, results):
             assert r["ok"], r
-            want = OVER_H100.get((arch, shape), {}).get(version)
-            if want is not None:
-                assert abs(r["peak_memory_bytes"] - want) <= PEAK_RECORD_TOL * want, (
-                    arch, shape, r["peak_memory_bytes"], want)
-            else:
-                assert r["fits_h100"], (arch, shape, r["peak_memory_bytes"])
+            assert r["fits_h100"], (arch, shape, r["peak_memory_bytes"])
+            if (arch, shape) in TRAIN_RECORD_2_13:
+                for got, want in zip((r["peak_memory_bytes"], r["flops"]),
+                                     TRAIN_RECORD_2_13[(arch, shape)]):
+                    assert abs(got - want) <= TRAIN_RECORD_TOL * want, (
+                        arch, shape, torch.__version__, got, want)
             calls = r["kernel_call_shapes"]
             for name, n in r["kernel_calls"].items():
                 assert sum(c["count"] for c in calls if c["kernel"] == name) == n, (arch, shape, name)
@@ -2510,6 +2525,7 @@ def replay_phase(torch, ops, timer, dev, results):
     gen = torch.Generator(device=dev).manual_seed(23)
     launched, rows = {}, []
     calls = dryrun.distinct_calls(results)
+    assert len(calls) == DRYRUN_CALLS, (len(calls), DRYRUN_CALLS)
     for call in calls:
         name = call["kernel"]
         args, kwargs = replay_inputs(torch, call, gen, dev)

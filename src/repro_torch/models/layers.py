@@ -26,7 +26,9 @@ from torch.distributed.tensor.experimental import local_map
 
 from ..configs.base import ArchConfig
 from ..kernels import ops
-from ..dtensor_util import AT_LEAST_2_13, local_range, summed_over_splits, unsplit
+from ..dtensor_util import (
+    AT_LEAST_2_13, local_range, partial_where_split, product_on_rows, product_to_rows, unsplit,
+)
 from ..parallel.sharding import replicate_like
 
 Params = Dict[str, Any]
@@ -157,8 +159,20 @@ def init_attention(gen: torch.Generator, cfg: ArchConfig) -> Params:
     return init_from_spec(gen, attention_spec(cfg), dtype_of(cfg))
 
 
+def on_sequence_rows(x: torch.Tensor) -> bool:
+    """Whether ``x [B,S,D]`` is a DTensor split on its sequence (the ``sp``
+    residual) on a torch that refuses to view it with (B, S) flattened
+    (``dtensor_util.AT_LEAST_2_13``).  Its products then run as
+    ``product_on_rows`` and ``product_to_rows``, which place them as 2.13's
+    DTensor places the products of the flattened rows."""
+    return (not AT_LEAST_2_13 and isinstance(x, DTensor) and x.ndim == 3
+            and Shard(1) in x.placements)
+
+
 def _proj(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """x [B,S,D] @ w [D,A,K] -> [B,S,A,K], contiguous."""
+    if on_sequence_rows(x):
+        return product_on_rows(x, w)
     B, S, D = x.shape
     return (x.reshape(B * S, D) @ w.reshape(D, -1)).view(B, S, *w.shape[1:])
 
@@ -296,6 +310,8 @@ def apply_attention(
         out = ops.flash_attention(
             q, cache["k"], cache["v"], q_pos, cache["pos"][0], cfg.causal, window
         )
+    if on_sequence_rows(x):  # placed as x, the residual
+        return product_to_rows(out, p["wo"], x.placements), cache
     B, S, H, K = out.shape
     out = out.reshape(B * S, H * K) @ p["wo"].reshape(H * K, -1)
     return out.view(B, S, -1), cache
@@ -332,12 +348,19 @@ def init_mlp(gen: torch.Generator, cfg: ArchConfig) -> Params:
 
 
 def apply_mlp(p: Params, cfg: ArchConfig, x: torch.Tensor) -> torch.Tensor:
-    up = x @ p["w_up"]
+    """The MLP of ``x [B,S,D]``, placed as ``x`` on the sequence rows
+    (``on_sequence_rows``)."""
+    rows = on_sequence_rows(x)
+
+    def times(w):
+        return product_on_rows(x, w) if rows else x @ w
+
+    up = times(p["w_up"])
     if cfg.mlp_gated:
-        h = F.silu(x @ p["w_gate"]) * up
+        h = F.silu(times(p["w_gate"])) * up
     else:
         h = F.gelu(up, approximate="tanh")  # jax.nn.gelu's default
-    return h @ p["w_down"]
+    return product_to_rows(h, p["w_down"], x.placements) if rows else h @ p["w_down"]
 
 
 # --------------------------------------------------------------------------
@@ -365,23 +388,29 @@ def embed_tokens(p: Params, tokens: torch.Tensor) -> torch.Tensor:
 
 
 def _lookup_on_ranks(table: DTensor, tokens: DTensor) -> DTensor:
-    """``table[tokens]`` on each rank's tokens from the table gathered
-    whole, placed as the tokens are; the table's gradient is each rank's
-    partial sum over its tokens.  (torch 2.11's DTensor has no strategy for
-    the lookup's backward, an ``index_put``, with the tokens split.)"""
+    """``table[tokens]`` looked up by each rank for its own tokens, placed
+    as torch 2.13's DTensor places the lookup of a table at the configs'
+    widths: a table split on its vocabulary over a mesh dim where the
+    tokens are whole is split on its width there instead (an all-to-all),
+    each rank looks up its columns of every row it needs, and the result
+    is split on its width as the table is; over the tokens' own splits the
+    table is whole.  The table's gradient is each rank's partial sum over
+    its tokens.  (torch 2.11's DTensor has no strategy for the lookup's
+    backward, an ``index_put``, with the tokens split, and gathers the
+    table whole for its forward.)"""
     mesh, tp = tokens.device_mesh, tokens.placements
-    table = table.redistribute(mesh, (Replicate(),) * mesh.ndim)
+    cols = tuple(Shard(1) if p == Shard(0) and q == Replicate() else Replicate() if p.is_shard() else p
+                 for p, q in zip(table.placements, tp))
+    out = tuple(Shard(tokens.ndim) if c == Shard(1) else q for c, q in zip(cols, tp))
     return local_map(
-        lambda t, i: t[i], out_placements=(tp,), in_placements=(table.placements, tp),
-        in_grad_placements=(summed_over_splits(tp), tp),
-        device_mesh=mesh,
-    )(table, tokens)
+        lambda t, i: t[i], out_placements=(out,), in_placements=(cols, tp),
+        in_grad_placements=(partial_where_split(cols, tp), tp), device_mesh=mesh,
+    )(table.redistribute(mesh, cols), tokens)
 
 
 def unembed(p: Params, cfg: ArchConfig, x: torch.Tensor) -> torch.Tensor:
-    if cfg.tie_embeddings:
-        return x @ p["tokens"].T
-    return x @ p["unembed"]
+    w = p["tokens"].T if cfg.tie_embeddings else p["unembed"]
+    return product_on_rows(x, w) if on_sequence_rows(x) else x @ w
 
 
 class _TakeLast(torch.autograd.Function):

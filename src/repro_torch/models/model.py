@@ -33,7 +33,6 @@ from torch.distributed.tensor.experimental import local_map
 from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ArchConfig
-from ..dtensor_util import AT_LEAST_2_13, unsplit
 from ..parallel import opt_flags
 from ..parallel import sharding as sh
 from . import layers as L
@@ -89,32 +88,6 @@ def _unstack(tree: Params, n: int) -> List[Params]:
     return blocks
 
 
-# From torch 2.13 on, DTensor views a residual split on its sequence (sp)
-# with (B, S) flattened, and each product that follows gathers the sequence
-# itself; torch 2.11 refuses that view (``dtensor_util.AT_LEAST_2_13``).
-# There a sublayer takes its input gathered on the sequence and hands its
-# output back placed as the residual, so its gradient comes back gathered.
-# The Mamba block takes its rows as the residual is split on either torch:
-# under sp it runs on them (``mamba._rows_mix``); without sp, and in a
-# decode step, the residual is not split on its sequence.
-
-
-def _sequence_whole(t: torch.Tensor) -> torch.Tensor:
-    """``t [B,S,D]`` gathered on its sequence where this torch cannot
-    flatten it split; else ``t``."""
-    if AT_LEAST_2_13 or not isinstance(t, DTensor):
-        return t
-    return unsplit(t, 1)
-
-
-def _placed_as(y: torch.Tensor, h: torch.Tensor) -> torch.Tensor:
-    """A sublayer's output ``y`` placed as the residual ``h`` where this
-    torch cannot flatten a split sequence; else ``y``."""
-    if AT_LEAST_2_13 or not isinstance(y, DTensor):
-        return y
-    return y.redistribute(h.device_mesh, h.placements)
-
-
 def _apply_sub(
     sub: Params,
     cfg: ArchConfig,
@@ -134,21 +107,21 @@ def _apply_sub(
     if mixer == "attn":
         # prefill attends over its own k/v; decode over the cache
         y, _ = L.apply_attention(
-            sub["attn"], cfg, _sequence_whole(y), q_pos,
+            sub["attn"], cfg, y, q_pos,
             cache=cache, cache_index=cache_index, self_attend=not decode,
         )
     elif decode:
         y = M.apply_mamba_decode(sub["mamba"], cfg, y, cache)
     else:
         y = M.apply_mamba(sub["mamba"], cfg, y, cache)
-    h = constrain(h + _placed_as(y, h))
+    h = constrain(h + y)
     if ff == "none":
         return h, None
-    y = _sequence_whole(L.rms_norm(h, sub["ln2"]))
+    y = L.rms_norm(h, sub["ln2"])
     if ff == "moe":
         y, aux = X.apply_moe(sub["moe"], cfg, y)
-        return constrain(h + _placed_as(y, h)), aux
-    return constrain(h + _placed_as(L.apply_mlp(sub["mlp"], cfg, y), h)), None
+        return constrain(h + y), aux
+    return constrain(h + L.apply_mlp(sub["mlp"], cfg, y)), None
 
 
 def param_spec(cfg: ArchConfig) -> Spec:
@@ -335,7 +308,7 @@ class Model:
         h, n_prefix = self._embed_inputs(params, batch)
         q_pos = torch.arange(h.shape[1], dtype=torch.int32, device=h.device)
         h, aux = self._backbone(params, h, q_pos, remat=True)
-        h = _sequence_whole(L.rms_norm(h, params["final_norm"]))
+        h = L.rms_norm(h, params["final_norm"])
         if n_prefix:
             h = h[:, n_prefix:]
         logits = L.unembed(sh.gather_fsdp(params["embed"]), self.cfg, h)

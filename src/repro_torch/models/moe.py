@@ -279,11 +279,15 @@ def apply_moe(p: Params, cfg: ArchConfig, x: torch.Tensor) -> Tuple[torch.Tensor
     if opt_flags.get("moe_a2a") and opt_flags.get("mesh") is not None:
         return apply_moe_shard_map(p, cfg, x, opt_flags.get("mesh"), opt_flags.get("batch_axes"))
     B, S, D = x.shape
+    rows = x.placements if L.on_sequence_rows(x) else None
     if isinstance(x, DTensor):  # tokens over the batch axes, whole on `model`
         x = constrain(x, (batch_axes(x.device_mesh, B), None, None))
     xt = x.reshape(B * S, D)
     r = route(p["router"], cfg, xt)
-    return _experts(p, xt, r, cfg.n_experts).view(B, S, D), _aux(r, cfg)
+    y = _experts(p, xt, r, cfg.n_experts).view(B, S, D)
+    if rows is not None:  # placed as its input: its gradient comes back gathered, not
+        y = y.redistribute(y.device_mesh, rows)  # split on S, which 2.11 cannot view as (B*S, D)
+    return y, _aux(r, cfg)
 
 
 # --------------------------------------------------------------------------

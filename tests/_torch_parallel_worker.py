@@ -12,7 +12,7 @@ from __future__ import annotations
 
 import json
 import sys
-from contextlib import contextmanager
+from contextlib import contextmanager, nullcontext
 from datetime import timedelta
 from pathlib import Path
 
@@ -47,12 +47,18 @@ PARITY = {
     # under sp the gated norm and out_proj run on each rank's sequence rows
     # (mamba._gate_and_project_rows)
     "jamba-1.5-large-398b/sp": ("jamba-1.5-large-398b", ("sp",), {"n_layers": 8}),
-    # the same with the placements the model takes on torch below 2.13
-    # (dtensor_util.AT_LEAST_2_13 false: each sublayer's input gathered on
-    # the sequence, its output placed as the residual, the embedding looked
-    # up on each rank's tokens)
+    # the same under torch 2.11's rules (rules_of_2_11: the sequence-split
+    # residual never viewed with (B, S) flattened; dtensor_util.AT_LEAST_2_13
+    # false: the attention and MLP products on the sequence rows, the MoE
+    # output placed as its input, the embedding looked up on each rank's
+    # tokens)
     "jamba-1.5-large-398b/sp/below_2_13": ("jamba-1.5-large-398b", ("sp", "below_2_13"),
                                            {"n_layers": 8}),
+    # a GQA model whose one KV head `model` does not split (K/V on each
+    # rank's own rows), with the plain GeLU MLP, and a model whose
+    # unembedding is its token table, under 2.11's rules
+    "granite-34b/sp/below_2_13": ("granite-34b", ("sp", "below_2_13"), {}),
+    "mamba2-370m/sp/below_2_13": ("mamba2-370m", ("sp", "below_2_13"), {}),
     # the Mamba block alone, on each rank's sequence rows under sp
     # (mamba._rows_mix, the SSD scan split on its sequence)
     "mamba2-370m/sp": ("mamba2-370m", ("sp",), {}),
@@ -114,18 +120,46 @@ def scan_placements():
 
 
 @contextmanager
-def placements_below_2_13(on: bool):
-    """While ``on``, the model takes the placements it takes on torch
-    below 2.13 (``dtensor_util.AT_LEAST_2_13`` false where it is read)."""
-    from repro_torch.models import layers, model
+def rules_of_2_11():
+    """torch 2.11's DTensor on this torch, as far as the port meets it: the
+    model takes the placements it takes below 2.13
+    (``dtensor_util.AT_LEAST_2_13`` false where it is read), and a view
+    that flattens a dim split on a mesh dim into the dim before it (the
+    ``sp`` residual's (B, S)) is refused, as 2.11 refuses it, where 2.13
+    keeps the split as a strided one
+    (``_ViewShardingPropagator._analyze_flatten``).  DTensor's caches of
+    sharding decisions are cleared on entry and exit.  On torch below 2.13
+    these are its own rules, and nothing is patched."""
+    from repro_torch.dtensor_util import AT_LEAST_2_13
 
-    saved = model.AT_LEAST_2_13, layers.AT_LEAST_2_13
-    if on:
-        model.AT_LEAST_2_13 = layers.AT_LEAST_2_13 = False
+    if not AT_LEAST_2_13:
+        yield
+        return
+    from torch.distributed.tensor import Shard
+    from torch.distributed.tensor._ops._view_ops import _ViewShardingPropagator
+    from torch.distributed.tensor.debug import _clear_sharding_prop_cache
+
+    from repro_torch.models import layers
+
+    analyze = _ViewShardingPropagator._analyze_flatten
+
+    def refuse(self, cmd):
+        if self.strict_view:
+            for dim in cmd.input_dims[1:]:
+                if any(isinstance(p, Shard) and p.dim == dim.input_dim
+                       for p in self.input_src_placements):
+                    raise RuntimeError(f"rules of torch 2.11: cannot view dim {dim.input_dim}, "
+                                       f"split over the mesh, flattened into the dim before it")
+        return analyze(self, cmd)
+
+    gate = layers.AT_LEAST_2_13
+    _clear_sharding_prop_cache()
+    layers.AT_LEAST_2_13, _ViewShardingPropagator._analyze_flatten = False, refuse
     try:
         yield
     finally:
-        model.AT_LEAST_2_13, layers.AT_LEAST_2_13 = saved
+        layers.AT_LEAST_2_13, _ViewShardingPropagator._analyze_flatten = gate, analyze
+        _clear_sharding_prop_cache()
 
 
 def run_parity(rank: int, out: Path) -> None:
@@ -138,7 +172,8 @@ def run_parity(rank: int, out: Path) -> None:
         res = {}
         for tag, batch in (("distinct", distinct), ("twice", twice)):
             dbatch = sh.distribute(batch, sh.batch_shardings(cfg, batch, mesh), mesh)
-            with scan_placements() as scans, placements_below_2_13("below_2_13" in flags):
+            rules = rules_of_2_11() if "below_2_13" in flags else nullcontext()
+            with scan_placements() as scans, rules:
                 logits, _ = model.prefill(dparams, {"tokens": dbatch["tokens"]})
                 loss, metrics, grads = loss_and_grads(model, dparams, dbatch)
             res[f"{tag}/scan_x"] = np.array(scans, dtype=str)
@@ -575,7 +610,8 @@ CASES = {"parity": run_parity, "wrappers": run_wrappers, "decode": run_decode, "
 
 def _rank(rank: int, case: str, world: int, out: str) -> None:
     torch.set_num_threads(1)
-    dist.init_process_group("gloo", init_method=f"file://{out}/store_{world}",
+    # an absolute path: a relative one would read as the URL's host
+    dist.init_process_group("gloo", init_method=f"file://{Path(out).resolve()}/store_{world}",
                             rank=rank, world_size=world, timeout=timedelta(seconds=120))
     try:
         for one in case.split(","):

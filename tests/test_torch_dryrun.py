@@ -29,11 +29,20 @@ against the JAX package's.
   while the Mamba block gathered its input whole on the sequence, its
   FLOPs within 1 % of each; reduced deepseek-7b (no Mamba block) counts
   its recorded peak and FLOPs exactly, with and without ``sp``.
+* Under torch 2.11's rules (``_torch_parallel_worker.rules_of_2_11``),
+  reduced jamba-1.5-large-398b and granite-34b ``train_4k`` under ``sp``
+  count the 2.13 path's FLOPs and kernel calls exactly, its peak within
+  one allocator block and its collective bytes within 1 % (the lookup of
+  a table this small aside), and never hold two residual-shaped tensors
+  gathered on the sequence at once.
 
 The reduced configs run at head_dim 64 and in bf16, widths the card's
 kernels take (on the meta device the wrappers check what they take).
 """
+import contextlib
 import dataclasses
+import sys
+import weakref
 
 import jax
 import numpy as np
@@ -44,7 +53,7 @@ torch = pytest.importorskip("torch")
 import torch.distributed as dist  # noqa: E402
 from torch.utils.flop_counter import FlopCounterMode  # noqa: E402
 
-from _torch_parallel_worker import FakeGroup  # noqa: E402
+from _torch_parallel_worker import FakeGroup, rules_of_2_11  # noqa: E402
 from jax.sharding import AbstractMesh  # noqa: E402
 from repro.configs import SHAPES as J_SHAPES  # noqa: E402
 from repro.configs import reduced_config as j_reduced_config  # noqa: E402
@@ -55,6 +64,7 @@ from repro.models.model import active_params as j_active_params  # noqa: E402
 from repro.parallel import sharding as jsh  # noqa: E402
 from repro.train.optimizer import AdamWConfig as JAdamWConfig  # noqa: E402
 from repro.train.train_step import init_train_state, make_train_step  # noqa: E402
+from repro_torch import dtensor_util  # noqa: E402
 from repro_torch.configs import SHAPES, reduced_config  # noqa: E402
 from repro_torch.launch import cost, dryrun  # noqa: E402
 from repro_torch.launch.mesh import make_debug_mesh  # noqa: E402
@@ -302,18 +312,30 @@ JAMBA_SP_WHOLE_INPUT = (38454945280, 6875173093376)
 DEEPSEEK_TRAIN = {("sp",): (34951463424, 5661068886016), (): (35018572288, 5661370875904)}
 
 
-def _reduced_train_cell(arch, opts):
-    with FakeGroup(8):
+def _reduced_train_run(arch, opts, rules=contextlib.nullcontext):
+    """``run_cell`` of reduced ``arch`` x train_4k on the fake (4, 2) mesh,
+    under the DTensor ``rules`` (a context manager)."""
+    with FakeGroup(8), rules():
         mesh = make_debug_mesh(8, model=2)
         res = dryrun.run_cell(arch, "train_4k", False, verbose=False, mesh=mesh,
                               cfg=reduced_config(arch, **KW), opts=opts)
     assert res["ok"] and not dist.is_initialized()
+    return res
+
+
+def _reduced_train_cell(arch, opts):
+    res = _reduced_train_run(arch, opts)
     return res["peak_memory_bytes"], res["flops"]
 
 
 @pytest.fixture(scope="module")
-def jamba_sp():
-    return _reduced_train_cell("jamba-1.5-large-398b", ("sp",))
+def jamba_sp_run():
+    return _reduced_train_run("jamba-1.5-large-398b", ("sp",))
+
+
+@pytest.fixture(scope="module")
+def jamba_sp(jamba_sp_run):
+    return jamba_sp_run["peak_memory_bytes"], jamba_sp_run["flops"]
 
 
 def test_sp_gated_rows_lower_the_hybrid_train_peak(jamba_sp):
@@ -333,3 +355,94 @@ def test_sp_mamba_rows_lower_the_hybrid_train_peak(jamba_sp):
 @pytest.mark.parametrize("opts", list(DEEPSEEK_TRAIN))
 def test_cell_without_mamba_counts_as_before(opts):
     assert _reduced_train_cell("deepseek-7b", opts) == DEEPSEEK_TRAIN[opts]
+
+
+# Under torch 2.11's rules (rules_of_2_11: the sp residual never viewed with
+# (B, S) flattened, the gate of dtensor_util.AT_LEAST_2_13 off), reduced
+# jamba-1.5-large-398b (attention on split KV heads, gated MLP, MoE, Mamba)
+# and granite-34b (one KV head, which `model` does not split, and the plain
+# GeLU MLP) x train_4k under sp: each on the fake (4, 2) mesh, with the most
+# residual-shaped [B, S, D] tensors that ``unsplit`` gathered alive at once
+RULES_OF_2_11 = ("jamba-1.5-large-398b", "granite-34b")
+
+
+@contextlib.contextmanager
+def _gathered_rows(shape, seen):
+    """While open, ``seen["most"]``: the most storages of local ``shape``
+    made by ``dtensor_util.unsplit`` (wherever it was imported) alive at
+    once."""
+    run = dtensor_util.unsplit
+    seen.update(alive=0, most=0, made=0)
+
+    def freed():
+        seen["alive"] -= 1
+
+    def spy(t, dim):
+        out = run(t, dim)
+        if out is not t and tuple(out.to_local().shape) == shape:
+            seen["made"] += 1
+            seen["alive"] += 1
+            seen["most"] = max(seen["most"], seen["alive"])
+            weakref.finalize(out.to_local().untyped_storage(), freed)
+        return out
+
+    users = [m for m in sys.modules.values()
+             if getattr(m, "__name__", "").startswith("repro_torch") and getattr(m, "unsplit", None) is run]
+    for m in users:
+        m.unsplit = spy
+    try:
+        yield
+    finally:
+        for m in users:
+            m.unsplit = run
+
+
+@pytest.fixture(scope="module")
+def rules_of_2_11_runs(jamba_sp_run):
+    runs = {}
+    for arch in RULES_OF_2_11:
+        cfg = reduced_config(arch, **KW)
+        B, S = SHAPES["train_4k"].global_batch // 4, SHAPES["train_4k"].seq_len
+        seen = {}
+        with _gathered_rows((B, S, cfg.d_model), seen):
+            below = _reduced_train_run(arch, ("sp",), rules_of_2_11)
+        on = jamba_sp_run if arch == "jamba-1.5-large-398b" else _reduced_train_run(arch, ("sp",))
+        runs[arch] = {"on": on, "below": below, "gathered": dict(seen)}
+    return runs
+
+
+@pytest.mark.parametrize("arch", RULES_OF_2_11)
+def test_rules_of_2_11_count_as_2_13(rules_of_2_11_runs, arch):
+    """The FLOPs and the distinct kernel calls equal the 2.13 path's
+    exactly, and so does the peak, but for the one allocator block of the
+    tensor of the fake mesh that DTensor makes once a process for its
+    decomposition rules (``_get_fake_mesh``), counted by whichever run of
+    the process makes it first.  The collective bytes are within 1 % once
+    the embedding lookup's all-gathers on 2.13 are set aside: 2.13's
+    DTensor gathers a table this small (16 KB a rank) whole, and then the
+    tokens and the lookup's gradient, where at the configs' widths it
+    splits the table on its width with all-to-alls, as the port's lookup
+    does below 2.13 (``layers._lookup_on_ranks``); ``CostMode`` counts no
+    all-to-all of DTensor's (PERF.md, PR 29)."""
+    on, below = rules_of_2_11_runs[arch]["on"], rules_of_2_11_runs[arch]["below"]
+    assert abs(below["peak_memory_bytes"] - on["peak_memory_bytes"]) <= cost.BLOCK, (
+        below["peak_memory_bytes"], on["peak_memory_bytes"])
+    assert below["flops"] == on["flops"]
+    assert below["kernel_call_shapes"] == on["kernel_call_shapes"]
+    cfg, cell = reduced_config(arch, **KW), SHAPES["train_4k"]
+    B, S, D, V = cell.global_batch, cell.seq_len, cfg.d_model, cfg.padded_vocab
+    lookup = (B // 4) * S * D * 2 + B * S * 4 + V * D * 2  # gradient, tokens, table
+    want = on["coll_bytes"] - lookup
+    assert abs(below["coll_bytes"] - want) <= 0.01 * want, (
+        below["coll_breakdown"], on["coll_breakdown"])
+
+
+@pytest.mark.parametrize("arch", RULES_OF_2_11)
+def test_rules_of_2_11_hold_no_gathered_residual(rules_of_2_11_runs, arch):
+    """Under 2.11's rules a product on the sequence rows gathers its input
+    inside and again in its backward (``dtensor_util.product_on_rows``):
+    no residual-shaped tensor gathered by ``unsplit`` outlives the next,
+    where the sublayers' gathered inputs were saved for the backward
+    (ROADMAP C9)."""
+    gathered = rules_of_2_11_runs[arch]["gathered"]
+    assert gathered["made"] > 0 and gathered["most"] == 1, gathered

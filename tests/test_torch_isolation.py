@@ -194,3 +194,45 @@ def test_the_kernel_layer_imports_no_higher_layer(path):
             assert (node.module or "").split(".")[0] not in above, (path, node.module)
         elif isinstance(node, ast.ImportFrom) and (node.module or "").startswith("repro_torch."):
             assert node.module.split(".")[1] not in above, (path, node.module)
+
+
+def test_the_private_torch_names_the_emulation_of_2_11_reaches():
+    """The tests' emulation of torch 2.11's DTensor rules
+    (``_torch_parallel_worker.rules_of_2_11``) patches one private method of
+    DTensor's view rule and clears its private caches of sharding
+    decisions: both are named here, so that a torch that moves one fails
+    this test, and the patch is undone on exit."""
+    from _torch_parallel_worker import rules_of_2_11
+    from torch.distributed.tensor._ops._view_ops import _ViewShardingPropagator
+    from torch.distributed.tensor.debug import _clear_sharding_prop_cache
+
+    from repro_torch.models import layers
+
+    assert callable(_clear_sharding_prop_cache)
+    before = _ViewShardingPropagator.__dict__["_analyze_flatten"]
+    assert callable(before)
+    with rules_of_2_11():
+        assert _ViewShardingPropagator.__dict__["_analyze_flatten"] is not before
+        assert layers.AT_LEAST_2_13 is False
+    assert _ViewShardingPropagator.__dict__["_analyze_flatten"] is before
+
+
+def test_the_emulation_of_2_11_refuses_a_flattened_sequence_split():
+    """Under ``rules_of_2_11`` a bare (B, S) view of a ``[B, S, D]`` DTensor
+    split on S over `model` (the ``sp`` residual) raises, as on the card's
+    torch 2.11; without it, torch 2.13 takes the view as a strided split."""
+    import torch
+    from _torch_parallel_worker import FakeGroup, rules_of_2_11
+    from torch.distributed.tensor import DTensor, Shard
+
+    from repro_torch.launch.mesh import make_debug_mesh
+
+    with FakeGroup(8):
+        mesh = make_debug_mesh(8, model=2)
+        x = DTensor.from_local(torch.empty(2, 8, 16, device="meta"), mesh, (Shard(0), Shard(1)),
+                               run_check=False, shape=torch.Size((8, 16, 16)), stride=(256, 16, 1))
+        with rules_of_2_11(), pytest.raises(RuntimeError):
+            x.view(128, 16)
+        assert x.view(128, 16).shape == (128, 16)
+        with rules_of_2_11():  # the same view with the sequence whole is taken
+            x.redistribute(mesh, (Shard(0), Shard(2))).view(128, 16)

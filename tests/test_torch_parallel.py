@@ -6,8 +6,10 @@ so no process group outlives a test.
 * On a (data 2, model 2) mesh, reduced deepseek-7b (``sp``), mamba2-370m
   (``mamba_heads``, and ``sp``), qwen3-moe-30b-a3b (``moe_ep``, and
   ``moe_a2a``) and jamba-1.5-large-398b (attention, Mamba and the placed
-  MoE; with ``sp``, the whole Mamba block on the sequence rows, also with
-  the placements the model takes on torch below 2.13):
+  MoE; with ``sp``, the whole Mamba block on the sequence rows), and under
+  torch 2.11's rules (``rules_of_2_11``: the placements the model takes
+  below 2.13, no (B, S) view of a sequence split) jamba, granite-34b (one
+  KV head) and mamba2-370m (its token table as its unembedding) with ``sp``:
   prefill logits, loss and every grad leaf of the sharded run equal the
   single-process port's within 1e-5 of each tensor's largest magnitude
   (fp32; the sums run in another order).  Under ``moe_a2a`` the aux loss
