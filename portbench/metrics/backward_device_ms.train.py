@@ -1,0 +1,13 @@
+"""The backward of a training step (``train.backward``: ``torch.autograd.grad``,
+the remat blocks' recompute included), on the device: the median over the
+traced steps of the time between the span's CUDA events, summed over a
+step's microbatches, in ms."""
+from portbench import hostspans
+
+
+def read(r):
+    try:
+        from repro_torch.spans import session
+    except ImportError:  # a program that records no spans
+        return None
+    return hostspans.step_device_ms(session(), "train.backward")

@@ -1,0 +1,14 @@
+"""The share of the traced wave in which the device idled while the engine
+read logits back (``serve.readback``) or picked tokens and retired rows
+(``serve.sample``), in %.
+The program's spans are joined to the trace by ``hostspans.idle_us``; the
+four ``idle_*.serve`` shares sum to ``device_idle.serve``."""
+from portbench import hostspans
+
+
+def read(r):
+    try:
+        from repro_torch.spans import session
+    except ImportError:  # a program that records no spans
+        return None
+    return hostspans.idle_share(session(), r.trace, r.records.get("traced_s"), "sample")

@@ -19,17 +19,22 @@ refilling them from the queue.
 Sampling draws from ``np.random.default_rng(seed)`` exactly as the JAX
 engine does, so sampled output matches too.  The engine rejects
 sliding-window configs: per-row positions need slot == position.
+
+While a profiler is active ``generate`` records its spans
+(``repro_torch.spans``): one ``serve.request`` a request, from its arrival
+in ``generate`` to its retirement; each solo ``serve.prefill`` and its
+``serve.insert_row``; each step's ``serve.sample`` and ``serve.decode``.
 """
 from __future__ import annotations
 
-import time
 from collections import deque
 from dataclasses import dataclass, field
-from typing import Dict, List, Optional, Union
+from typing import Dict, List, Optional, Tuple, Union
 
 import numpy as np
 import torch
 
+from .. import spans
 from ..configs.base import ArchConfig
 from ..models.model import Model, Params
 
@@ -77,7 +82,8 @@ class ServeEngine:
         self.overflow = overflow
         self._rng = np.random.default_rng(seed)
         # Host seconds of each prefill and decode call of the last
-        # generate(), logits readback (which waits for the device) included.
+        # generate(), logits readback (which waits for the device) included:
+        # the serve.prefill and serve.decode spans' durations.
         self.call_seconds: Dict[str, List[float]] = {"prefill": [], "decode": []}
 
     def _sample(self, logits: np.ndarray, temperature: float) -> int:
@@ -139,6 +145,54 @@ class ServeEngine:
     def _logits_to_host(self, logits: torch.Tensor) -> np.ndarray:
         return logits[:, 0, :].float().cpu().numpy()
 
+    def _prefill(self, r: Request, dt: torch.dtype) -> Tuple[np.ndarray, Params]:
+        """Solo prefill of ``r`` (exact length, true positions) into a fresh
+        one-row cache: its last position's logits on the host, and the
+        cache."""
+        t0 = spans.now()
+        call = spans.begin(
+            "serve.prefill", start=t0, request_id=r.request_id, prompt_len=len(r.prompt)
+        )
+        part = spans.begin("serve.cache_init", call)
+        tokens = torch.tensor([r.prompt], dtype=torch.int32, device=self.device)
+        cache = self.model.init_cache(1, self.max_len, dtype=dt)
+        spans.end(part)
+        part = spans.begin("serve.forward", call)
+        logits, cache = self.model.prefill(self.params, {"tokens": tokens}, cache)
+        spans.end(part)
+        return self._read_back(logits, call, t0, "prefill")[0], cache
+
+    def _decode(
+        self, cache: Params, tok: np.ndarray, pos: np.ndarray
+    ) -> Tuple[np.ndarray, Params]:
+        """One decode step of every row (``tok`` ``[B,1]`` at ``pos``
+        ``[B]``): the logits on the host, and the cache."""
+        t0 = spans.now()
+        call = spans.begin("serve.decode", start=t0, rows=len(pos))
+        if call is not None:  # row b's attention visits its keys at slots 0..pos[b]
+            call.attrs["keys"] = int(pos.sum()) + len(pos)
+        part = spans.begin("serve.forward", call)
+        logits, cache = self.model.decode_step(
+            self.params, cache,
+            torch.from_numpy(tok).to(self.device), torch.from_numpy(pos).to(self.device),
+        )
+        spans.end(part)
+        return self._read_back(logits, call, t0, "decode"), cache
+
+    def _read_back(
+        self, logits: torch.Tensor, call: Optional[spans.Span], t0: int, kind: str
+    ) -> np.ndarray:
+        """The logits on the host, which ends the ``kind`` call begun at
+        ``t0`` (``call`` its span): its host seconds go to
+        ``call_seconds``."""
+        part = spans.begin("serve.readback", call)
+        host = self._logits_to_host(logits)
+        t1 = spans.now()
+        spans.end(part, t1)
+        spans.end(call, t1)
+        self.call_seconds[kind].append((t1 - t0) / 1e9)
+        return host
+
     def generate(
         self, requests: List[Request], batch_size: Optional[int] = None
     ) -> Dict[int, List[int]]:
@@ -147,6 +201,7 @@ class ServeEngine:
         if not requests:
             return {}
         budgets = {i: self._budget(r) for i, r in enumerate(requests)}
+        held = [spans.begin("serve.request", request_id=r.request_id) for r in requests]
         pending = deque(range(len(requests)))
         B = max(1, min(batch_size or self.batch_size, len(requests)))
         dt = self.cache_dtype()
@@ -163,50 +218,43 @@ class ServeEngine:
                 if row_req[b] is None and pending:
                     ri = pending.popleft()
                     r = requests[ri]
-                    t0 = time.perf_counter()
-                    logits, row_cache = self.model.prefill(
-                        self.params,
-                        {"tokens": torch.tensor([r.prompt], dtype=torch.int32, device=self.device)},
-                        self.model.init_cache(1, self.max_len, dtype=dt),
-                    )
-                    last[b] = self._logits_to_host(logits)[0]
-                    self.call_seconds["prefill"].append(time.perf_counter() - t0)
+                    last[b], row_cache = self._prefill(r, dt)
+                    part = spans.begin("serve.insert_row", request_id=r.request_id)
                     self.insert_row(cache, row_cache, b)
+                    spans.end(part)
                     row_req[b] = ri
                     row_pos[b] = len(r.prompt)
             live = [b for b in range(B) if row_req[b] is not None]
             if not live:
                 break
 
+            step = spans.begin("serve.sample", rows=len(live))
             for b in live:
                 ri = row_req[b]
                 r = requests[ri]
                 t = self._sample(last[b], r.temperature)
+                if held[ri] is not None:
+                    held[ri].attrs.setdefault("first_token", spans.now())
                 if self.eos_id is not None and t == self.eos_id:
                     r.done = True  # EOS consumed, not returned
                     row_req[b] = None
+                    spans.end(held[ri])
                     continue
                 r.generated.append(t)
                 tok[b, 0] = t
                 if len(r.generated) >= budgets[ri]:
                     r.done = True
                     row_req[b] = None
-
+                    spans.end(held[ri])
+            spans.end(step)
             if all(ri is None for ri in row_req) and not pending:
                 break
             # Retired rows ride along as dummies (their stale token at a
             # clamped position): writes stay confined to their own cache
             # row and are replaced wholesale on refill.
-            t0 = time.perf_counter()
-            logits, cache = self.model.decode_step(
-                self.params, cache,
-                torch.from_numpy(tok).to(self.device),
-                torch.from_numpy(
-                    np.minimum(row_pos, self.max_len - 1).astype(np.int32)
-                ).to(self.device),
+            arr, cache = self._decode(
+                cache, tok, np.minimum(row_pos, self.max_len - 1).astype(np.int32)
             )
-            arr = self._logits_to_host(logits)
-            self.call_seconds["decode"].append(time.perf_counter() - t0)
             for b in range(B):
                 if row_req[b] is not None:
                     last[b] = arr[b]

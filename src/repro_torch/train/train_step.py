@@ -4,6 +4,10 @@
 The JAX step is a pure function under ``jax.jit``; the port's runs eagerly
 and updates the state's tensors in place (``optimizer.adamw_update``),
 returning a ``TrainState`` that holds them.
+
+While a profiler is active a step records its spans (``repro_torch.spans``):
+``train.step``, and in it ``train.forward`` and ``train.backward`` for each
+microbatch and ``train.adamw``, each with device stamps on a CUDA device.
 """
 from __future__ import annotations
 
@@ -11,6 +15,7 @@ from typing import Any, Dict, NamedTuple, Optional, Tuple
 
 import torch
 
+from .. import spans
 from ..models.model import Model
 from ..tree import leaves, leaves_with_paths, tree_map, unflatten
 from .optimizer import (
@@ -54,13 +59,21 @@ def loss_and_grads(
     detached aliases of the params, so the caller's tensors keep
     ``requires_grad=False``.  The leaves the model names in
     ``unread_by_loss`` (an audio model's token table) get zeros, as in
-    JAX; any other leaf the loss does not reach makes autograd raise."""
+    JAX; any other leaf the loss does not reach makes autograd raise.
+    Its ``train.forward`` and ``train.backward`` spans sit in the open
+    ``train.step``, if any."""
     live = tree_map(lambda p: p.detach().requires_grad_(), params)
     flat = leaves_with_paths(live)
     unread = model.unread_by_loss
+    cuda = model.device.type == "cuda"
+    step = spans.last_open("train.step")
     with torch.enable_grad():
+        part = spans.begin("train.forward", step, device=cuda)
         loss, metrics = model.loss(live, batch)
+        spans.end(part)
+        part = spans.begin("train.backward", step, device=cuda)
         read = iter(torch.autograd.grad(loss, [p for path, p in flat if path not in unread]))
+        spans.end(part)
     grads = [torch.zeros_like(p) if path in unread else next(read) for path, p in flat]
     metrics = {k: v.detach() for k, v in metrics.items()}
     return loss.detach(), metrics, unflatten(live, grads)
@@ -80,7 +93,10 @@ def make_train_step(
     ``lax.scan``).
     """
 
+    cuda = model.device.type == "cuda"
+
     def train_step(state: TrainState, batch: Dict[str, torch.Tensor]):
+        step = spans.begin("train.step")
         if num_microbatches == 1:
             loss, metrics, grads = loss_and_grads(model, state.params, batch)
         else:
@@ -109,12 +125,15 @@ def make_train_step(
         if compress_grads and ef is not None:
             grads, ef = compress_decompress_with_feedback(grads, ef)
 
+        part = spans.begin("train.adamw", step, device=cuda)
         new_params, new_opt, opt_metrics = adamw_update(
             opt_cfg, state.params, grads, state.opt
         )
+        spans.end(part)
         metrics = dict(metrics)
         metrics.update(opt_metrics)
         metrics["loss"] = loss
+        spans.end(step)
         return TrainState(new_params, new_opt, ef), metrics
 
     return train_step
