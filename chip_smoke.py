@@ -20,6 +20,10 @@ Phases (any failure exits non-zero):
                 Flash runs at head_dim 16 too, the reduced configs' width,
                 on every route (decode over 4,096 slots, causal and
                 windowed prefills of 2,048, the reduced model's own calls).
+                The flash backward kernels (bf16) at the train paths'
+                shapes (deepseek-7b.train_8k's, the families') against the
+                plain recompute they replace (FLASH_BWD_TOL), the same bits
+                twice, timed beside the plain version and SDPA's backward.
   4. serve    — main path 1: full-width, 30-layer deepseek-7b in bf16 from
                 a seeded generator; ServeEngine(max_len=512, batch_size=4)
                 serves 6 requests of 16 new tokens; every forward pass must
@@ -75,7 +79,9 @@ Phases (any failure exits non-zero):
                 against its reckoning.  Main path 4: mamba2-370m at full
                 width and depth through train_loop, 4 steps at batch 8 x
                 seq 512; every step 193 RMSNorm and 96 SSD scans, all on
-                mma.  Finite losses and grad norms, the step-0
+                mma.  The dense and MoE steps (and hubert's, phase 10) make
+                one backward a layer, each on the backward kernels
+                (ops.FLASH_BWD).  Finite losses and grad norms, the step-0
                 cross-entropy near its expected value; small models
                 (reduced deepseek-7b, mamba2-370m and the two MoE configs,
                 whose routing must be the same on both) trained on the card
@@ -160,8 +166,11 @@ Phases (any failure exits non-zero):
                 holds the state's bytes
                 (requested exactly; allocated within the allocator's
                 rounding), the step's peak (measured / predicted in
-                PEAK_BAND), FLOPs and roofline time against the median of 5
-                steps, and every step's launches by kernel, route, head dim
+                PEAK_BAND, on a step whose flash backward is the plain
+                recompute the dry run prices; the timed steps, on the
+                backward kernels, peak no higher), FLOPs and roofline
+                time against the median of 5 steps, and every step's
+                launches by kernel, route, head dim
                 and mask, all through the wrappers' DTensor branch, and
                 one more step profiled (device time by kernel kind).
  12. sched    — the main path's last link: the port's scheduler core
@@ -182,11 +191,12 @@ Then one line {"kernels": [...]} and, last, {"ok": true, "device": {...}}.
 
     python3 chip_smoke.py --only rmsnorm,ssd,prefill_profile --src DIR
 
-runs phases 1-3 for the named kernels (and the profiled prefill, phase 10c
-for "jamba", phase 11's dry run and replay for "replay", all of phase 11
-for "parallel", or for "sched" deepseek-7b's calibrated curves, full width
-and reduced, and phase 12 on them) on the port in DIR/src, then stops: two
-trees' kernels timed in one chip call.
+runs phases 1-3 for the named kernels ("flash_bwd": the flash backward
+cases) (and the profiled prefill, phase 10c for "jamba", phase 11's dry
+run and replay for "replay", all of phase 11 for "parallel", or for
+"sched" deepseek-7b's calibrated curves, full width and reduced, and phase
+12 on them) on the port in DIR/src, then stops: two trees' kernels timed
+in one chip call.
 
 Imports nothing of JAX or of the JAX package.
 """
@@ -270,16 +280,15 @@ def rmsnorm_bound(x):
     return bound(rows * D * 2 * x.element_size() + 4 * D, 4 * rows * D, "float32")
 
 
-def flash_bound(torch, q, k, q_pos, kv_pos, causal, window):
-    """``bound`` of one flash-attention call on this data: q read and the
-    output written once, each key and value row that some query sees read
-    once, and the positions; 4 K H operations a visible (query, key) pair,
-    a row that sees no key reading (and averaging) all T.  The mask is
-    formed over query rows in chunks of FLASH_PLAIN_BYTES."""
+def visible_pairs(torch, q, k, q_pos, kv_pos, causal, window):
+    """(visible (query, key) pairs summed over the batch, keys some query
+    sees summed over the batch) of one flash-attention call on this data, a
+    row that sees no key seeing (and averaging) all T.  The mask is formed
+    over query rows in chunks of FLASH_PLAIN_BYTES."""
     from repro_torch.kernels import ref
 
-    B, Sq, H, K = q.shape
-    T, G = k.shape[1], k.shape[2]
+    B, Sq = q.shape[:2]
+    T = k.shape[1]
     rows = max(1, FLASH_PLAIN_BYTES // (B * T))
     pairs, seen = 0, torch.zeros(B, T, dtype=torch.bool, device=q.device)
     for i in range(0, Sq, rows):
@@ -288,10 +297,33 @@ def flash_bound(torch, q, k, q_pos, kv_pos, causal, window):
         m = m | ~m.any(dim=-1, keepdim=True)
         pairs += int(m.sum())
         seen |= m.any(dim=1)
+    return pairs, int(seen.sum())
+
+
+def flash_bound(torch, q, k, q_pos, kv_pos, causal, window):
+    """``bound`` of one flash-attention call on this data: q read and the
+    output written once, each key and value row that some query sees read
+    once, and the positions; 4 K H operations a visible (query, key) pair
+    (``visible_pairs``)."""
+    H, K = q.shape[2:]
+    G = k.shape[2]
+    pairs, seen = visible_pairs(torch, q, k, q_pos, kv_pos, causal, window)
     esize = q.element_size()
-    moved = (2 * q.numel() * esize + 2 * int(seen.sum()) * G * K * esize
-             + 4 * (q_pos.numel() + kv_pos.numel()))
+    moved = 2 * q.numel() * esize + 2 * seen * G * K * esize + 4 * (q_pos.numel() + kv_pos.numel())
     return bound(moved, 4 * K * H * pairs, str(q.dtype).split(".")[-1])
+
+
+def flash_bwd_bound(torch, q, k, q_pos, kv_pos, causal, window):
+    """``bound`` of one flash-attention backward call: 10 K H operations a
+    visible pair (five products of the forward's size: S, dP, dV, dQ and
+    dK); q, the output and its gradient read and dq written, each key and
+    value row some query sees read and its dk and dv written."""
+    H, K = q.shape[2:]
+    G = k.shape[2]
+    pairs, seen = visible_pairs(torch, q, k, q_pos, kv_pos, causal, window)
+    esize = q.element_size()
+    moved = 4 * q.numel() * esize + 4 * seen * G * K * esize + 4 * (q_pos.numel() + kv_pos.numel())
+    return bound(moved, 10 * K * H * pairs, str(q.dtype).split(".")[-1])
 
 
 def ssd_bound(torch, x, Bm, chunk, init_state, out_dtype):
@@ -544,6 +576,85 @@ def flash_cases(torch, ops, ref, timer, dev):
             plain_ms=timer.ms(lambda: ref.flash_attention_ref(q, k, v, qpos, kvpos, causal, window)),
             library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by,
         ))
+    return out
+
+
+# The backward kernels against the plain recompute (the fp32 gradient of the
+# plain version, the path they replace): each gradient's relative L2 error
+# over the whole tensor.  bf16 P and dS in the products and the bf16
+# output add about 2^-9 a term; on an H100 the kernels read 0.0023-0.0034
+# at every shape tried (PERF.md §6), the plain path's own bf16 rounding
+# 0.0016-0.0033 against the fp32 arithmetic.  A row's relative error is no
+# test here: a causal row's gradient can be 0 in exact arithmetic (the
+# first query's dq), which bf16 rounding leaves near 0.
+FLASH_BWD_TOL = 1e-2
+
+
+def flash_bwd_cases(torch, ops, ref, timer, dev):
+    """Phase 3's backward cases: the bf16 backward kernels
+    (``ops._flash_attention_bwd_kernel``, the backward alone on the
+    forward kernel's output) at the train paths' shapes against the plain
+    recompute (``ops._vjp`` of ``ref.flash_attention_ref``, the backward of
+    float32 calls) within FLASH_BWD_TOL, the same bits twice; with times
+    (kernel, plain, SDPA's backward as the yardstick) and the bound."""
+    import torch.nn.functional as F
+
+    i32 = dict(dtype=torch.int32, device=dev)
+    cases = [  # name, B, S, H, G, K, window, causal
+        ("train_8k", 2, 4096, 32, 32, 128, None, True),  # deepseek-7b.train_8k's call
+        ("train", 4, 512, 32, 32, 128, None, True),  # phase 9's deepseek-7b step
+        ("train_moe", 4, 512, 32, 4, 128, None, True),  # qwen3-moe-30b-a3b, G=4
+        ("train_jamba", 4, 512, 64, 8, 128, None, True),  # jamba's attention, G=8
+        ("train_swa", 1, 4096, 32, 8, 120, 1024, True),  # h2o-danube-3-4b, K=120 windowed
+        ("train_audio", 8, 500, 16, 16, 80, None, False),  # hubert-xlarge, K=80 non-causal
+        ("train_k16", 4, 2048, 32, 8, 16, None, True),  # the reduced configs' width in bf16
+    ]
+    gen = torch.Generator(device=dev).manual_seed(5)
+    out = []
+    for name, B, S, H, G, K, window, causal in cases:
+        q = torch.randn(B, S, H, K, generator=gen, device=dev).bfloat16()
+        k = torch.randn(B, S, G, K, generator=gen, device=dev).bfloat16()
+        v = torch.randn(B, S, G, K, generator=gen, device=dev).bfloat16()
+        pos = torch.arange(S, **i32)
+        o = ops.flash_attention(q, k, v, pos, pos, causal, window)
+        do = torch.randn(B, S, H, K, generator=gen, device=dev).bfloat16()
+
+        def kernel():
+            return ops._flash_attention_bwd_kernel(q, k, v, o, do, pos, pos, causal, window)
+
+        def plain():
+            return ops._vjp(
+                lambda q_, k_, v_: ref.flash_attention_ref(q_, k_, v_, pos, pos, causal, window),
+                (q, k, v), (True,) * 3, (do,))
+
+        got, again = kernel(), kernel()
+        want = plain()
+        torch.cuda.synchronize()
+        errs = [((a.float() - b.float()).norm() / b.float().norm()).item()
+                for a, b in zip(got, want)]
+        errs = [e if e == e else float("inf") for e in errs]  # NaN: no agreement
+        same = all(torch.equal(a, b) for a, b in zip(got, again))
+        ok = same and all(bool(t.isfinite().all()) for t in got) and max(errs) <= FLASH_BWD_TOL
+        del got, again, want
+        # SDPA's backward: its flash path where it takes the mask (causal, no window)
+        qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_() for t in (q, k, v))
+        mask = {"is_causal": causal} if window is None else {
+            "attn_mask": ref.attention_mask(pos, pos, causal, window)}
+        lib_out = F.scaled_dot_product_attention(qt, kt, vt, enable_gqa=H != G, **mask)
+        lib_do = do.transpose(1, 2)
+        lib_ms = timer.ms(
+            lambda: torch.autograd.grad(lib_out, (qt, kt, vt), lib_do, retain_graph=True))
+        del lib_out
+        b_ms, b_by = flash_bwd_bound(torch, q, k, pos, pos, causal, window)
+        out.append(dict(
+            kernel="flash_attention_bwd",
+            case=f"{name} bfloat16 B={B} S={S} H={H} G={G} K={K}"
+                 + (f" window={window}" if window else "") + ("" if causal else " non-causal"),
+            route="kernel", rel_l2_dq_dk_dv=errs, tol=FLASH_BWD_TOL, same_bits=same, ok=ok,
+            ms=timer.ms(kernel), plain_ms=timer.ms(plain, iters=5, warmup=1),
+            library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by,
+        ))
+        torch.cuda.empty_cache()
     return out
 
 
@@ -1547,6 +1658,8 @@ def train_cut(torch, ops, dev, arch, layers, steps: int = 3):
                 assert len(calls) == 2 * L and drops[:L] == drops[L:][::-1], drops
     counts = _launch_counts(ops)
     launches, flash_routes = dict(ops.LAUNCHES), dict(ops.FLASH_ROUTES)
+    # one backward a layer a step, each on the backward kernels
+    assert ops.FLASH_BWD == {f"kernel K={cfg.head_dim} causal": L * steps}, ops.FLASH_BWD
     peak = torch.cuda.max_memory_allocated() / 1e9
     check_train_records(cfg, records, {"rmsnorm": 2 * norms_a_layer(cfg) * L + 1,
                                        "flash_attention": 2 * L, "flash/mma_prefill": 2 * L,
@@ -1561,7 +1674,7 @@ def train_cut(torch, ops, dev, arch, layers, steps: int = 3):
         f"peak memory {peak:.2f} GB against the reckoning {state_gb + grads_gb + adamw_gb + logits_gb:.2f}"
         f" GB = state {state_gb:.2f} + bf16 grads {grads_gb:.2f} + AdamW's 5 fp32 temporaries of "
         f"the largest leaf ({largest} elements) {adamw_gb:.2f} + logits {logits_gb:.2f}; "
-        f"launches {launches}, flash by route {flash_routes}")
+        f"launches {launches}, flash by route {flash_routes}, backward calls {dict(ops.FLASH_BWD)}")
     profile_train_step(torch, model, opt_cfg, step_fn, state, batches[steps], label)
     return counts
 
@@ -1861,6 +1974,7 @@ def audio_phase(torch, np, ops, dev):
     check_train_records(cfg, records, {"rmsnorm": 4 * n + 1, "flash_attention": 2 * n,
                                        "flash/mma_prefill": 2 * n, shape: 2 * n},
                         B * S, f"train {cfg.name}")
+    assert ops.FLASH_BWD == {f"kernel K={cfg.head_dim} non-causal": 3 * n}, ops.FLASH_BWD
     walls = sorted(r["wall"] for r in records[1:])
     log(f"train {cfg.name}: 3 steps at batch {B} x {S} frames ({labels} masked-frame labels in "
         f"all); step wall after the first {[round(w * 1e3, 3) for w in walls]} ms; peak memory "
@@ -2628,12 +2742,32 @@ class CallsAgainstPlain:
             setattr(self.ops, name, wrapper)
 
 
+class DryRunBackward:
+    """While installed, every flash-attention backward takes the plain
+    recompute (``ops._flash_bwd_path``), the backward the dry run prices on
+    the meta device: a card cell's step then holds the tensors its dry run
+    counted, and its peak is held against the prediction like for like."""
+
+    def __init__(self, ops):
+        self.ops = ops
+
+    def __enter__(self):
+        self.saved = self.ops._flash_bwd_path
+        self.ops._flash_bwd_path = lambda device, dtype: "plain"
+        return self
+
+    def __exit__(self, *exc):
+        self.ops._flash_bwd_path = self.saved
+
+
 def card_cell(torch, ops, dev, mesh, arch, shape, batch, layers, opts, per_step, note, steps=5):
     """One dry-run cell on the card, against its dry run on the meta device
     with the same mesh and cut: the state's bytes (exact), the step's peak
-    (in PEAK_BAND), FLOPs and roofline time against the step's median
-    device time, and every step's launches by kernel, route and shape, all
-    through the wrappers' DTensor branch; one step's every kernel call
+    (in PEAK_BAND, on a step whose backward is the plain recompute the dry
+    run prices: ``DryRunBackward``; the timed steps, which run the backward
+    kernels, may peak no higher), FLOPs and roofline time against the
+    step's median device time, and every step's launches by kernel, route
+    and shape, all through the wrappers' DTensor branch; one step's every kernel call
     against its plain version on the same inputs; then one step profiled
     (device busy share, time by kernel kind).  Returns the launches of
     the timed steps."""
@@ -2698,12 +2832,14 @@ def card_cell(torch, ops, dev, mesh, arch, shape, batch, layers, opts, per_step,
                 arch, shape, name, calls, launched, check.worst)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        out = dryrun.run_step(model, cell, state)  # the step the peak is read on
+        with DryRunBackward(ops):
+            out = dryrun.run_step(model, cell, state)  # the step the peak is read on
         torch.cuda.synchronize()
         peak = torch.cuda.max_memory_allocated() - a0
         first = out[0] if cell.kind != "train" else out[1]["loss"]
         assert isinstance(first, DTensor) and bool(first.to_local().float().isfinite().all())
         del out, first
+        torch.cuda.reset_peak_memory_stats()
         records = []
         for _ in range(steps):
             before = _launch_counts(ops)
@@ -2720,6 +2856,7 @@ def card_cell(torch, ops, dev, mesh, arch, shape, batch, layers, opts, per_step,
                 assert got.get(key, 0) == want, (arch, shape, key, got)
             for name in ops.LAUNCHES:  # every launch came through local_map
                 assert got.get(name, 0) == through[name], (name, got, through)
+        peak_kernels = torch.cuda.max_memory_allocated() - a0  # the timed steps'
         profile_calls(torch, f"parallel {arch} x {shape}", lambda: dryrun.run_step(model, cell, state))
     finally:
         opt_flags.reset()
@@ -2732,7 +2869,8 @@ def card_cell(torch, ops, dev, mesh, arch, shape, batch, layers, opts, per_step,
         "state_bytes": {"predicted": pred["state_bytes"], "requested": state_req,
                         "predicted_allocated": pred["state_allocated_bytes"],
                         "allocated": state_alloc, "tensors": n},
-        "peak_bytes": {"predicted": mode.peak_bytes, "measured": peak, "ratio": ratio},
+        "peak_bytes": {"predicted": mode.peak_bytes, "measured": peak, "ratio": ratio,
+                       "measured_with_the_backward_kernels": peak_kernels},
         "flops": mode.flops, "bytes": mode.bytes, "roofline_ms": max(t_flops, t_bytes),
         "bound_by": "operations" if t_flops >= t_bytes else "bytes",
         "step_ms": step_ms, "step_ms_all": [ms for ms, _ in records],
@@ -2742,6 +2880,7 @@ def card_cell(torch, ops, dev, mesh, arch, shape, batch, layers, opts, per_step,
     }
     log("parallel: " + json.dumps(row))
     assert PEAK_BAND[0] <= ratio <= PEAK_BAND[1], (arch, shape, ratio)
+    assert peak_kernels <= PEAK_BAND[1] * mode.peak_bytes, (arch, shape, peak_kernels)
     del state
     torch.cuda.empty_cache()
     return {k: sum(got[k] for _, got in records) for k in records[0][1]}
@@ -3024,16 +3163,16 @@ def parse_args(argv):
 
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--only", default="",
-                    help="comma list of rmsnorm, flash, ssd, prefill_profile, jamba, replay, "
-                         "parallel, sched: run the device and build phases and these, then stop "
+                    help="comma list of rmsnorm, flash, flash_bwd, ssd, prefill_profile, jamba, "
+                         "replay, parallel, sched: run the device and build phases and these, then stop "
                          "(to time another tree's kernels beside this one's in one chip call, or "
                          "phase 10c, phase 11's dry run and replay, phase 11 or phase 12 alone)")
     ap.add_argument("--src", type=Path, default=ROOT,
                     help="root of the checkout whose src/repro_torch is run (default: this one)")
     args = ap.parse_args(argv)
     args.only = [p for p in args.only.split(",") if p]
-    unknown = set(args.only) - {"rmsnorm", "flash", "ssd", "prefill_profile", "jamba", "replay",
-                                "parallel", "sched"}
+    unknown = set(args.only) - {"rmsnorm", "flash", "flash_bwd", "ssd", "prefill_profile", "jamba",
+                                "replay", "parallel", "sched"}
     if unknown:
         ap.error(f"unknown phases {sorted(unknown)}")
     return args
@@ -3090,7 +3229,8 @@ def run_phases(torch, args, dry) -> int:
     # 3. kernels against their plain versions
     timer = Timer(torch, dev)
     results = []
-    for name, cases in (("rmsnorm", rmsnorm_cases), ("flash", flash_cases), ("ssd", ssd_cases)):
+    for name, cases in (("rmsnorm", rmsnorm_cases), ("flash", flash_cases),
+                        ("flash_bwd", flash_bwd_cases), ("ssd", ssd_cases)):
         if not args.only or name in args.only:
             results += cases(torch, ops, ref, timer, dev)
     for r in results:

@@ -86,12 +86,10 @@
 #include <math.h>
 #include <stdint.h>
 
-#include <type_traits>
+#include "flash_mma.cuh"
 
 namespace {
 
-constexpr float kNegInf = -1e30f;
-constexpr float kLog2e = 1.4426950408889634f;
 constexpr int kPastT = INT_MIN;  // kv_pos stand-in for a key past the range a block visits
 
 __device__ __forceinline__ float to_f(float v) { return v; }
@@ -515,14 +513,6 @@ constexpr int kBM = kRowGroups * 16;  // rows per block
 constexpr int kBN = 64;               // keys per tile
 constexpr int kStages = 2;            // K/V tiles in the cp.async ring
 
-// The width the tensor-core route computes over: K rounded up to the
-// 16-element depth of an mma.sync step (120 -> 128; 16, 64, 80, 128 stay);
-// the dims past K are staged as zeros.
-template <int K>
-__host__ __device__ constexpr int mma_width() {
-  return (K + 15) / 16 * 16;
-}
-
 template <int K>
 constexpr size_t mma_smem_bytes() {
   // Q [kBM][KD+8] and kStages stages of K and V [kBN][KD+8] in bf16 and of
@@ -534,59 +524,11 @@ constexpr size_t mma_smem_bytes() {
          kStages * kBN * sizeof(int);
 }
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-// 16-byte global -> shared copy; zero-fills the destination when !pred.
-__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, bool pred) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
-               "r"(pred ? 16 : 0)
-               : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src, bool pred) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst), "l"(src),
-               "r"(pred ? 4 : 0)
-               : "memory");
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-__device__ __forceinline__ void ldsm_x4(uint32_t addr, uint32_t (&r)[4]) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(addr)
-               : "memory");
-}
-__device__ __forceinline__ void ldsm_x4_trans(uint32_t addr, uint32_t (&r)[4]) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(addr)
-               : "memory");
-}
-// c += a (16x16, row-major) * b (16x8, column-major), bf16 in, fp32 out.
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&h);
-}
-
-// Fragment layout of m16n8k16 (lane = 4 * gq + tq): an accumulator holds
-// rows gq (c[0], c[1]) and gq + 8 (c[2], c[3]), columns 2 tq and 2 tq + 1.
-// NH = 1: four warps, warp w takes rows 16 w .. +16 of the block.  NH = 2
-// (for grids too small to fill the card): eight warps, warp w takes rows
-// 16 (w % 4) .. +16 and keys 32 (w / 4) .. +32 of every tile, with its own
-// (m, l, o), and the two warps of a row group merge at the end.
+// Fragments as flash_mma.cuh lays them out.  NH = 1: four warps, warp w
+// takes rows 16 w .. +16 of the block.  NH = 2 (for grids too small to
+// fill the card): eight warps, warp w takes rows 16 (w % 4) .. +16 and keys
+// 32 (w / 4) .. +32 of every tile, with its own (m, l, o), and the two warps
+// of a row group merge at the end.
 template <int K, int NH>
 __global__ void __launch_bounds__(NH * kRowGroups * 32)
 flash_prefill_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
@@ -986,20 +928,6 @@ int launch_mma(const Call& c) {
   const dim3 grid((c.Sq * (c.H / c.G) + kBM - 1) / kBM, c.G, c.B);
   if (static_cast<int64_t>(grid.x) * grid.y * grid.z <= sms) return launch_mma_nh<K, 2>(c, grid);
   return launch_mma_nh<K, 1>(c, grid);
-}
-
-// Calls f with K as a compile-time constant, for the head dims the routes
-// are built for; cudaErrorInvalidValue for any other.
-template <typename F>
-int with_head_dim(int K, F f) {
-  switch (K) {
-    case 16: return f(std::integral_constant<int, 16>{});
-    case 64: return f(std::integral_constant<int, 64>{});
-    case 80: return f(std::integral_constant<int, 80>{});
-    case 120: return f(std::integral_constant<int, 120>{});
-    case 128: return f(std::integral_constant<int, 128>{});
-    default: return (int)cudaErrorInvalidValue;
-  }
 }
 
 }  // namespace

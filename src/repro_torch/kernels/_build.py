@@ -3,9 +3,10 @@
 Each source is compiled by its own ``nvcc`` process, all started
 together, for ``sm_90a``; the objects are linked into one shared library
 with a plain C interface, loaded with ``ctypes``.  The library is named by
-a hash of the sources and flags, so an edited source is never served from
-a stale build.  It lives under ``build/repro_torch/`` at the root of the
-checkout, which ``.gitignore`` lists.
+a hash of the sources, the headers they share (``csrc/*.cuh``) and the
+flags, so an edited source or header is never served from a stale build.
+It lives under ``build/repro_torch/`` at the root of the checkout, which
+``.gitignore`` lists.
 """
 from __future__ import annotations
 
@@ -32,6 +33,9 @@ SIGNATURES = {
     # q, k, v, q_pos, q_pos_bstride, kv_pos, out, B, Sq, T, H, G, K,
     # causal, has_window, window, dtype, route, stream
     "flash_attention_fwd": (_P, _P, _P, _P, _I64, _P, _P) + (_I,) * 11 + (_P,),
+    # q, k, v, out, dout, q_pos, q_pos_bstride, kv_pos, dq, dk, dv, stats,
+    # tiles, B, Sq, T, H, G, K, causal, has_window, window, stream
+    "flash_attention_bwd": (_P,) * 6 + (_I64,) + (_P,) * 6 + (_I,) * 9 + (_P,),
     # x, x_bstride, x_sstride, dt, A, Bm, b_bstride, b_sstride, Cm,
     # c_bstride, c_sstride, init_state, y, state, B, S, H, P, N, chunk,
     # dtype, out_dtype, route, ws, stream
@@ -53,12 +57,18 @@ def _nvcc() -> str:
 
 
 def sources() -> list[Path]:
+    """The sources compiled, one object each."""
     return sorted(CSRC.glob("*.cu"))
+
+
+def headers() -> list[Path]:
+    """The headers the sources share; hashed, not compiled alone."""
+    return sorted(CSRC.glob("*.cuh"))
 
 
 def library_path() -> Path:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sources():
+    for src in sources() + headers():
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return BUILD_DIR / f"libreprotorch_{h.hexdigest()[:16]}.so"

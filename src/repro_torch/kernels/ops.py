@@ -5,11 +5,13 @@ tensor goes to the plain version in ``ref``, and autograd runs through
 it; a CUDA tensor goes to the hand-written kernel in ``csrc/`` or the
 call raises.  Nothing falls back from the kernel to the plain version.
 
-On the card each wrapper is a ``torch.autograd.Function``: the forward is
-the kernel, and the backward recomputes the plain version under
-``torch.enable_grad()`` and differentiates it (``_vjp``), as the JAX
-package's flash-attention ``custom_vjp`` does (``repro/kernels/ops.py``,
-``_fa_bwd``).  None of the three kernels has a backward kernel of its own.
+On the card each wrapper is a ``torch.autograd.Function`` whose forward is
+the kernel.  Flash attention's backward in bfloat16 is two kernels of its
+own (``csrc/flash_attention_bwd.cu``, ``_flash_bwd_path``); every other
+backward recomputes the plain version under ``torch.enable_grad()`` and
+differentiates it (``_vjp``), as the JAX package's flash-attention
+``custom_vjp`` does (``repro/kernels/ops.py``, ``_fa_bwd``): flash attention
+in float32 and on the meta device, RMSNorm and the SSD scan always.
 
 ``LAUNCHES`` counts, per wrapper, the kernel launches it has made; it is
 incremented right after a launch succeeds and nowhere else, so a run can
@@ -22,6 +24,10 @@ read-only sum by route.  ``RMSNORM_ROUTES`` and ``SSD_ROUTES`` split the
 RMSNorm and SSD-scan launches by route (``_rmsnorm_route``,
 ``_ssd_route``).  ``DTENSOR_CALLS`` counts the calls that came as
 DTensors (below), so that a run can show its launches all came that way.
+``FLASH_BWD`` counts flash attention's backward calls by path
+(``_flash_bwd_path``), head dim and mask, e.g. ``"kernel K=128 causal"`` or
+``"plain K=16 causal"``; ``LAUNCHES`` and ``FLASH_SHAPES`` count forward
+launches only.
 
 Two more kinds of tensor reach the wrappers, and neither touches the path
 of a plain CUDA tensor:
@@ -58,6 +64,8 @@ LAUNCHES: Dict[str, int] = {"rmsnorm": 0, "flash_attention": 0, "ssd_scan": 0}
 # calls through each wrapper's DTensor branch (local_map), whatever the device
 DTENSOR_CALLS: Dict[str, int] = {"rmsnorm": 0, "flash_attention": 0, "ssd_scan": 0}
 FLASH_SHAPES: Dict[str, int] = {}  # keys made by _flash_shape, added at first launch
+FLASH_BWD: Dict[str, int] = {}  # backward calls, keys made by _flash_shape from the path
+_FLASH_BWD_TILE = 64  # rows of a row tile in csrc/flash_attention_bwd.cu (kTile)
 _FLASH_ROUTE_CODES = {"fma": 0, "decode": 1, "mma_prefill": 2}  # csrc/flash_attention.cu
 
 
@@ -88,8 +96,8 @@ _RMSNORM_ROW_DIMS = (128, 1024, 2048, 4096)  # the widths of the row kernel
 _SSD_ROUTE_CODES = {"fma": 0, "mma": 1}  # csrc/ssd_scan.cu
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-# the cases of csrc/flash_attention.cu's with_head_dim, which
-# tests/test_torch_kernels.py holds equal to this tuple
+# the cases of csrc/flash_mma.cuh's with_head_dim, which
+# tests/test_torch_families.py holds equal to this tuple
 _HEAD_DIMS = (16, 64, 80, 120, 128)
 _SSD_SIZES = (16, 32, 64, 128)  # the SSD kernel's P, N and chunk
 _SSD_MMA_SIZES = (64, 128)  # N and chunk of the SSD scan's tensor-core route
@@ -105,6 +113,7 @@ def reset_launches() -> None:
         for name in counts:
             counts[name] = 0
     FLASH_SHAPES.clear()
+    FLASH_BWD.clear()
 
 
 def _on_cpu(*tensors: torch.Tensor) -> bool:
@@ -310,8 +319,19 @@ def _flash_route(Sq: int, dtype: torch.dtype) -> str:
     return "mma_prefill" if dtype == torch.bfloat16 else "fma"
 
 
+def _flash_bwd_path(device: torch.device, dtype: torch.dtype) -> str:
+    """The backward a flash-attention call takes: ``kernel`` (the two
+    kernels of csrc/flash_attention_bwd.cu) for bfloat16 on the card;
+    ``plain`` (``ref.flash_attention_ref`` recomputed in fp32 and
+    differentiated) for float32, the ``fma`` route's type, whose tolerance
+    bf16 products would not hold, and on the meta device, whose dry run
+    prices the plain recompute."""
+    return "kernel" if device.type == "cuda" and dtype == torch.bfloat16 else "plain"
+
+
 def _flash_shape(route: str, K: int, causal: bool, window: Optional[int]) -> str:
-    """The ``FLASH_SHAPES`` key of a launch: route, head dim and mask."""
+    """The ``FLASH_SHAPES`` key of a launch (or the ``FLASH_BWD`` key of a
+    backward, by path): route, head dim and mask."""
     mask = "causal" if causal else "non-causal"
     return f"{route} K={K} {mask}" + (" window" if window is not None else "")
 
@@ -328,9 +348,10 @@ def flash_attention(
     """Online-softmax GQA attention.  Any Sq and T; the KV head of query
     head h is h // (H // G); masks come from the positions; output in q's
     dtype.  On the card: head_dim 16, 64, 80, 120 or 128, float32 or bfloat16, one
-    launch of the kernel ``_flash_route`` names; the backward recomputes
+    launch of the kernel ``_flash_route`` names.  The backward is two
+    kernel launches in bfloat16 and in float32 recomputes
     ``ref.flash_attention_ref`` (the gradient of the fp32 plain function,
-    as in the JAX package)."""
+    as in the JAX package): ``_flash_bwd_path``."""
     if isinstance(q, DTensor):
         return _flash_dtensor(q, k, v, q_pos, kv_pos, causal, window)
     if _on_cpu(q, k, v, q_pos, kv_pos):
@@ -389,25 +410,40 @@ def _flash_dtensor(q: DTensor, k: DTensor, v: DTensor, q_pos, kv_pos, causal, wi
 
 
 class _FlashAttention(torch.autograd.Function):
-    """Forward: the flash-attention kernel.  Backward: the JAX package's
-    ``_fa_bwd``, ``ref.flash_attention_ref`` recomputed and differentiated
-    in q, k and v."""
+    """Forward: the flash-attention kernel.  Backward, by
+    ``_flash_bwd_path``: the backward kernels, which also read the
+    forward's output (saved by reference, for those calls alone); or the
+    JAX package's ``_fa_bwd``, ``ref.flash_attention_ref`` recomputed and
+    differentiated in q, k and v.  Each backward but a meta one is counted
+    in ``FLASH_BWD``."""
 
     @staticmethod
     def forward(ctx, q, k, v, q_pos, kv_pos, causal, window):
-        ctx.save_for_backward(q, k, v, q_pos, kv_pos)
+        out = _flash_attention_kernel(q, k, v, q_pos, kv_pos, causal, window)
+        ctx.path = _flash_bwd_path(q.device, q.dtype)
+        ctx.save_for_backward(q, k, v, q_pos, kv_pos, out if ctx.path == "kernel" else None)
         ctx.causal, ctx.window = causal, window
-        return _flash_attention_kernel(q, k, v, q_pos, kv_pos, causal, window)
+        return out
 
     @staticmethod
     def backward(ctx, g):
-        q, k, v, q_pos, kv_pos = ctx.saved_tensors
-        return _vjp(
-            lambda q_, k_, v_: ref.flash_attention_ref(
-                q_, k_, v_, q_pos, kv_pos, ctx.causal, ctx.window
-            ),
-            (q, k, v), ctx.needs_input_grad[:3], (g,),
-        ) + (None,) * 4
+        q, k, v, q_pos, kv_pos, out = ctx.saved_tensors
+        needs = ctx.needs_input_grad[:3]
+        if ctx.path == "kernel":
+            grads = _flash_attention_bwd_kernel(q, k, v, out, g, q_pos, kv_pos, ctx.causal,
+                                                ctx.window)
+            grads = tuple(t if n else None for t, n in zip(grads, needs))
+        else:
+            grads = _vjp(
+                lambda q_, k_, v_: ref.flash_attention_ref(
+                    q_, k_, v_, q_pos, kv_pos, ctx.causal, ctx.window
+                ),
+                (q, k, v), needs, (g,),
+            )
+        if not q.is_meta:
+            key = _flash_shape(ctx.path, q.shape[-1], ctx.causal, ctx.window)
+            FLASH_BWD[key] = FLASH_BWD.get(key, 0) + 1
+        return grads + (None,) * 4
 
 
 def _flash_attention_kernel(q, k, v, q_pos, kv_pos, causal, window) -> torch.Tensor:
@@ -468,6 +504,32 @@ def _flash_attention_kernel(q, k, v, q_pos, kv_pos, causal, window) -> torch.Ten
     shape = _flash_shape(route, K, causal, window)
     FLASH_SHAPES[shape] = FLASH_SHAPES.get(shape, 0) + 1
     return out
+
+
+def _flash_attention_bwd_kernel(q, k, v, out, dout, q_pos, kv_pos, causal, window):
+    """(dq, dk, dv) of one bfloat16 call on the card, from the two launches
+    of csrc/flash_attention_bwd.cu; q, k, v and the positions passed the
+    forward's checks.  Scratch: fp32 m, l and D of each row, and 16 bytes a
+    row tile (``_FLASH_BWD_TILE`` rows of a (b, KV head))."""
+    B, Sq, H, K = q.shape
+    T, G = k.shape[1], k.shape[2]
+    dout = dout.contiguous()
+    _require_aligned("flash_attention backward", out=out, dout=dout)
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    if q.numel() == 0:  # the forward launched nothing
+        return dq, dk.zero_(), dv.zero_()
+    rows = Sq * (H // G)
+    stats = torch.empty(3 * B * G * rows, dtype=torch.float32, device=q.device)
+    tiles = torch.empty(4 * B * G * -(-rows // _FLASH_BWD_TILE), dtype=torch.int32, device=q.device)
+    err = _build.load().flash_attention_bwd(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), dout.data_ptr(),
+        q_pos.data_ptr(), Sq if q_pos.ndim == 2 else 0, kv_pos.data_ptr(),
+        dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), stats.data_ptr(), tiles.data_ptr(),
+        B, Sq, T, H, G, K, int(causal), int(window is not None), int(window or 0), _stream(q),
+    )
+    if err != 0:
+        raise RuntimeError(f"flash_attention backward kernel launch failed: cudaError {err}")
+    return dq, dk, dv
 
 
 def _ssd_aligned(*tensors: torch.Tensor) -> bool:

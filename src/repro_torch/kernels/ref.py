@@ -56,6 +56,47 @@ def flash_attention_ref(
     return o.reshape(B, Sq, H, K).to(q.dtype)
 
 
+def flash_attention_bwd_ref(
+    q: torch.Tensor,  # [B,Sq,H,K]
+    k: torch.Tensor,  # [B,T,G,K]
+    v: torch.Tensor,  # [B,T,G,K]
+    out: torch.Tensor,  # [B,Sq,H,K], flash_attention_ref's output
+    dout: torch.Tensor,  # [B,Sq,H,K]
+    q_pos: torch.Tensor,  # [Sq] or [B,Sq]
+    kv_pos: torch.Tensor,  # [T]
+    causal: bool = True,
+    window: Optional[int] = None,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(dq, dk, dv) of ``flash_attention_ref`` against ``dout``, by the
+    backward kernels' arithmetic (csrc/flash_attention_bwd.cu) in fp32:
+    the row max m and sum l of the masked scores, P = exp(S - m) / l,
+    D = rowsum(dout * out), dS = P (dP - D) set to 0 wherever the mask is
+    false (a row with no visible key weighs each key 1/T in dv and passes
+    its scores no gradient, as autograd through the plain version's
+    ``where``).  The CPU oracle of the kernels; no path of the port runs
+    it."""
+    B, Sq, H, K = q.shape
+    G = k.shape[2]
+    scale = K**-0.5
+    qg = q.reshape(B, Sq, G, H // G, K).float()
+    kf, vf = k.float(), v.float()
+    dog = dout.reshape(B, Sq, G, H // G, K).float()
+    ok = attention_mask(q_pos, kv_pos, causal, window)
+    ok = ok[None, None, None] if ok.ndim == 2 else ok[:, None, None]
+    s = torch.einsum("bsghk,btgk->bghst", qg, kf) * scale
+    s = torch.where(ok, s, torch.full_like(s, NEG_INF))
+    m = s.amax(dim=-1, keepdim=True)
+    p = torch.exp(s - m)
+    p = p / p.sum(dim=-1, keepdim=True)
+    d = (dog * out.reshape(dog.shape).float()).sum(-1).permute(0, 2, 3, 1)[..., None]
+    dp = torch.einsum("bsghk,btgk->bghst", dog, vf)
+    ds = torch.where(ok, p * (dp - d), torch.zeros_like(p))
+    dq = torch.einsum("bghst,btgk->bsghk", ds, kf) * scale
+    dk = torch.einsum("bghst,bsghk->btgk", ds, qg) * scale
+    dv = torch.einsum("bghst,bsghk->btgk", p, dog)
+    return dq.reshape(B, Sq, H, K).to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
 def rmsnorm_ref(
     x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6
 ) -> torch.Tensor:

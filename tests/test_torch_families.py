@@ -470,13 +470,17 @@ def test_flash_head_dims_per_row_decode_match_jax_attention(K):
 
 
 def test_flash_head_dims_of_the_kernel():
-    """The widths the CUDA kernel is built for: the cases of
-    csrc/flash_attention.cu's with_head_dim are ops._HEAD_DIMS, and cover
-    every head_dim of a registered config and of its reduced config."""
+    """The widths the CUDA kernels are built for: the cases of
+    csrc/flash_mma.cuh's with_head_dim (the forward's and the backward's
+    dispatch) are ops._HEAD_DIMS, and cover every head_dim of a registered
+    config and of its reduced config."""
     import re
     from pathlib import Path
 
-    src = (Path(ops.__file__).parents[1] / "csrc" / "flash_attention.cu").read_text()
+    csrc = Path(ops.__file__).parents[1] / "csrc"
+    for name in ("flash_attention.cu", "flash_attention_bwd.cu"):
+        assert '#include "flash_mma.cuh"' in (csrc / name).read_text()
+    src = (csrc / "flash_mma.cuh").read_text()
     switch = re.search(r"int with_head_dim\(int K, F f\) \{(.*?)\n\}", src, re.S).group(1)
     cases = re.findall(r"case (\d+): return f\(std::integral_constant<int, (\d+)>", switch)
     assert cases and all(a == b for a, b in cases)

@@ -79,9 +79,50 @@ def test_rmsnorm_function_grads(plain_kernels, dtype):
 def test_flash_function_grads(plain_kernels, G, window):
     q, k, v = _leaf(2, 9, 4, 16), _leaf(2, 9, G, 16, seed=1), _leaf(2, 9, G, 16, seed=2)
     pos = torch.arange(9, dtype=torch.int32)
+    ops.reset_launches()
     got = _grads(lambda q, k, v: ops.flash_attention(q, k, v, pos, pos, True, window), (q, k, v))
     want = _grads(lambda q, k, v: ref.flash_attention_ref(q, k, v, pos, pos, True, window), (q, k, v))
     _same_grads(got, want)
+    assert ops.FLASH_BWD == {ops._flash_shape("plain", 16, True, window): 1}
+
+
+@pytest.fixture
+def bwd_kernel(plain_kernels, monkeypatch):
+    """The Function's kernel backward path on the CPU: every call takes
+    it, with the kernels swapped for ref.flash_attention_bwd_ref, which
+    must get the forward's own output; returns its calls."""
+    calls = []
+
+    def bwd(q, k, v, out, dout, q_pos, kv_pos, causal, window):
+        want = ref.flash_attention_ref(q, k, v, q_pos, kv_pos, causal, window)
+        assert torch.equal(out, want)  # the output saved by reference, not a recompute
+        calls.append(dout.shape)
+        return ref.flash_attention_bwd_ref(q, k, v, out, dout, q_pos, kv_pos, causal, window)
+
+    monkeypatch.setattr(ops, "_flash_bwd_path", lambda device, dtype: "kernel")
+    monkeypatch.setattr(ops, "_flash_attention_bwd_kernel", bwd)
+    return calls
+
+
+@pytest.mark.parametrize("G,window,causal",
+                         [(4, None, True), (2, None, True), (2, 5, True), (4, None, False)])
+def test_flash_function_kernel_backward_grads(bwd_kernel, G, window, causal):
+    """Through the kernel path the Function saves the forward's output and
+    hands the backward its inputs, output and incoming gradient: q, k and
+    v get the plain version's gradient (the kernels' arithmetic in fp32),
+    only those asked for, and FLASH_BWD counts one kernel call."""
+    q, k, v = _leaf(2, 9, 4, 16), _leaf(2, 9, G, 16, seed=1), _leaf(2, 9, G, 16, seed=2)
+    pos = torch.arange(9, dtype=torch.int32)
+    ops.reset_launches()
+    fn = lambda q, k, v: ops.flash_attention(q, k, v, pos, pos, causal, window)  # noqa: E731
+    got = _grads(fn, (q, k, v))
+    want = _grads(lambda q, k, v: ref.flash_attention_ref(q, k, v, pos, pos, causal, window),
+                  (q, k, v))
+    _same_grads(got, want, tol=1e-5)
+    assert ops.FLASH_BWD == {ops._flash_shape("kernel", 16, causal, window): 1}
+    assert len(bwd_kernel) == 1
+    (g_k,) = torch.autograd.grad(fn(q.detach(), k, v.detach()).sum(), (k,))  # k alone asks
+    assert g_k.shape == k.shape and len(bwd_kernel) == 2
 
 
 @pytest.mark.parametrize("use_state", [False, True])
@@ -126,10 +167,13 @@ def test_model_grads_through_the_functions(plain_kernels, arch):
     rng = np.random.default_rng(0)
     toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, 25)).astype(np.int32))
     batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    ops.reset_launches()
     loss, _, grads = loss_and_grads(model, params, batch)
     L = cfg.n_layers
     mixer = "ssd_scan" if arch == "mamba2-370m" else "flash_attention"
     assert plain_kernels == {"rmsnorm": 4 * L + 1, "flash_attention": 0, "ssd_scan": 0, mixer: 2 * L}
+    # one backward a layer, of the recompute (fp32: the plain path)
+    assert ops.FLASH_BWD == ({} if arch == "mamba2-370m" else {"plain K=16 causal": L})
     with pytest.MonkeyPatch.context() as mp:
         mp.setattr(ops, "_on_cpu", lambda *t: True)
         loss_p, _, grads_p = loss_and_grads(model, params, batch)

@@ -16,7 +16,7 @@ torch = pytest.importorskip("torch")
 from repro.kernels import ops as jops  # noqa: E402
 from repro.kernels import ref as jref  # noqa: E402
 from repro.models import layers as JL  # noqa: E402
-from repro_torch.kernels import ops  # noqa: E402
+from repro_torch.kernels import ops, ref  # noqa: E402
 
 _JDT = {"float32": jnp.float32, "bfloat16": jnp.bfloat16}
 _TDT = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -178,6 +178,91 @@ def test_cpu_flash_counts_no_route_and_reset_clears_routes():
     assert ops.FLASH_ROUTES == {"decode": 0, "mma_prefill": 0, "fma": 0}
 
 
+# (B, Sq, T, H, G, K, causal, window, q_pos kind): q_pos "tail" is the last
+# Sq of T positions, "rows" per-row [B,Sq] positions over a cache with -1
+# tail slots, "blind" rows before every key and empty slots
+_BWD_CASES = {
+    "causal": (2, 40, 40, 8, 8, 16, True, None, "tail"),
+    "non_causal": (2, 24, 40, 8, 4, 16, False, None, "tail"),
+    "window": (1, 48, 48, 8, 8, 16, True, 7, "tail"),
+    "gqa_G4": (1, 33, 33, 8, 4, 64, True, None, "tail"),
+    "mqa_G1": (1, 33, 33, 8, 1, 64, True, None, "tail"),
+    "per_row_q_pos": (3, 5, 30, 4, 2, 16, True, None, "rows"),
+    "sq_below_t": (2, 16, 48, 4, 2, 64, True, None, "tail"),
+    "no_visible_key": (1, 4, 8, 2, 1, 64, True, None, "blind"),
+    "head_dim_80_non_causal_window": (1, 20, 20, 4, 2, 80, False, 6, "tail"),
+}
+
+
+@pytest.mark.parametrize("case", list(_BWD_CASES))
+def test_flash_bwd_ref_matches_jax_grad(case):
+    """The backward kernels' arithmetic in fp32 (ref.flash_attention_bwd_ref:
+    m, l, D and dS set to 0 where masked) is the gradient of the JAX
+    package's plain attention (jax.vjp of repro/kernels/ref.py's
+    flash_attention_ref, per batch row where q_pos is per row); a row that
+    sees no key gets dq 0 and spreads dout over v's gradient by 1/T."""
+    import jax
+
+    B, Sq, T, H, G, K, causal, window, kind = _BWD_CASES[case]
+    q, k, v, qpos, kpos = _mk(B, Sq, T, H, G, K, seed=3)
+    if kind == "rows":
+        kpos = np.where(np.arange(T) < 28, np.arange(T), -1).astype(np.int32)
+        qpos = np.array([[4, 5, 6, 7, 8], [17, 18, 19, 20, 21], [23, 24, 25, 26, 27]], np.int32)
+    elif kind == "blind":
+        qpos = np.array([-3, -2, 5, 7], np.int32)  # rows 0-1 precede every key
+        kpos[6:] = -1
+    dout = np.random.default_rng(4).normal(size=q.shape).astype(np.float32)
+    args_t = [torch.tensor(a) for a in (q, k, v)]
+    out = ops.flash_attention(*args_t, torch.tensor(qpos), torch.tensor(kpos), causal, window)
+    got = ref.flash_attention_bwd_ref(*args_t, out, torch.tensor(dout), torch.tensor(qpos),
+                                      torch.tensor(kpos), causal, window)
+    want = [[], [], []]
+    for b in range(B):
+        qp_b = qpos[b] if qpos.ndim == 2 else qpos
+        _, vjp = jax.vjp(lambda q_, k_, v_: jref.flash_attention_ref(
+            q_, k_, v_, jnp.asarray(qp_b), jnp.asarray(kpos), causal, window),
+            *(jnp.asarray(a[b:b + 1]) for a in (q, k, v)))
+        for acc, g in zip(want, vjp(jnp.asarray(dout[b:b + 1]))):
+            acc.append(np.asarray(g))
+    for g_t, g_j in zip(got, want):
+        assert g_t.dtype == torch.float32
+        _close(g_t, np.concatenate(g_j), 2e-5)
+    if kind == "blind":
+        assert float(got[0][0, :2].abs().max()) == 0.0
+        np.testing.assert_allclose(  # v's gradient from the blind rows alone, at the empty slots
+            got[2][0, 6:].numpy(), np.broadcast_to(dout[0, :2].sum((0, 1)) / T, (2, 1, K)),
+            atol=1e-6)
+
+
+@pytest.mark.parametrize(
+    "device,dtype,path",
+    [("cuda", torch.bfloat16, "kernel"), ("cuda", torch.float32, "plain"),
+     ("meta", torch.bfloat16, "plain"), ("meta", torch.float32, "plain"),
+     ("cpu", torch.bfloat16, "plain")],
+)
+def test_flash_bwd_path_by_device_and_dtype(device, dtype, path):
+    """bfloat16 on the card takes the backward kernels; float32 (the fma
+    route's type) and meta tensors (the dry run prices the plain recompute)
+    the plain path."""
+    assert ops._flash_bwd_path(torch.device(device), dtype) == path
+
+
+def test_meta_flash_backward_is_plain_uncounted_and_reset_clears_flash_bwd():
+    """A meta call's backward runs the plain recompute and counts nothing
+    in FLASH_BWD; reset_launches empties FLASH_BWD."""
+    ops.FLASH_BWD["kernel K=128 causal"] = 3
+    ops.reset_launches()
+    assert ops.FLASH_BWD == {}
+    q = torch.empty(2, 16, 4, 128, dtype=torch.bfloat16, device="meta", requires_grad=True)
+    k, v = (torch.empty(2, 16, 2, 128, dtype=torch.bfloat16, device="meta", requires_grad=True)
+            for _ in range(2))
+    pos = torch.arange(16, dtype=torch.int32, device="meta")
+    out = ops.flash_attention(q, k, v, pos, pos)
+    grads = torch.autograd.grad(out.float().sum(), (q, k, v))
+    assert [g.shape for g in grads] == [q.shape, k.shape, v.shape]
+    assert ops.FLASH_BWD == {} and ops.LAUNCHES["flash_attention"] == 0
+
+
 @pytest.mark.parametrize(
     "D,offset,route",
     [(128, 0, "row"), (1024, 0, "row"), (4096, 0, "row"), (4096, 1, "general"),
@@ -217,15 +302,19 @@ def test_flash_shape_keys_and_reset_clears_them():
 # --------------------------------------------------------------------------
 
 
-def test_library_is_named_by_a_hash_of_the_sources(tmp_path, monkeypatch):
+@pytest.mark.parametrize("edited", ["rmsnorm.cu", "flash_mma.cuh"])
+def test_library_is_named_by_a_hash_of_the_sources(tmp_path, monkeypatch, edited):
+    """An edited source, or a header the sources share, names another
+    library; headers are not compiled alone."""
     from repro_torch.kernels import _build
 
-    for src in _build.sources():
+    assert "flash_mma.cuh" not in [p.name for p in _build.sources()]
+    for src in _build.sources() + _build.headers():
         (tmp_path / src.name).write_bytes(src.read_bytes())
     monkeypatch.setattr(_build, "CSRC", tmp_path)
     before = _build.library_path()
     assert before.parent == _build.BUILD_DIR
-    with open(tmp_path / "rmsnorm.cu", "a") as f:
+    with open(tmp_path / edited, "a") as f:
         f.write("\n// edited\n")
     assert _build.library_path() != before  # an edited source is never served stale
 

@@ -491,22 +491,81 @@ def test_rmsnorm_grad_recomputes_plain(cuda_device, D, dtype):
     _same_grads(got, _grads(lambda x, s: ref.rmsnorm_ref(x, s), (x, s)), 1e-5)
 
 
+def _rel_l2(got, want):
+    return ((got.float() - want.float()).norm() / want.float().norm()).item()
+
+
+# the backward kernels against the fp32 gradient, each gradient's relative
+# L2 error over the whole tensor: bf16 P and dS in the products and the
+# bf16 output (chip_smoke.FLASH_BWD_TOL's reading)
+BWD_TOL = 1e-2
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype,route", [("bfloat16", "mma_prefill"), ("float32", "fma")])
 @pytest.mark.parametrize("G,window", [(8, None), (2, None), (8, 40)])
 def test_flash_grad_recomputes_plain(cuda_device, dtype, route, G, window):
     """deepseek-7b's training call (self-attention over the sequence, H=8
-    heads of 128 here) launches the route's kernel once; q, k and v get the
-    gradient of the fp32 plain function."""
+    heads of 128 here) launches the route's kernel once.  In float32 the
+    backward recomputes the plain version: q, k and v get the gradient of
+    the fp32 plain function.  In bfloat16 it is the backward kernels, within
+    BWD_TOL of that gradient; FLASH_BWD counts the path."""
     B, S, H, K = 2, 200, 8, 128
     q, k, v = _leaves_on((((B, S, H, K), dtype), ((B, S, G, K), dtype), ((B, S, G, K), dtype)),
                          cuda_device, seed=G)
     pos = torch.arange(S, dtype=torch.int32, device=cuda_device)
     n = ops.FLASH_ROUTES[route]
+    path = "kernel" if dtype == "bfloat16" else "plain"
+    key = ops._flash_shape(path, K, True, window)
+    n_bwd = ops.FLASH_BWD.get(key, 0)
     got = _grads(lambda q, k, v: ops.flash_attention(q, k, v, pos, pos, True, window), (q, k, v))
-    assert ops.FLASH_ROUTES[route] == n + 1
+    assert ops.FLASH_ROUTES[route] == n + 1 and ops.FLASH_BWD[key] == n_bwd + 1
     want = _grads(lambda q, k, v: ref.flash_attention_ref(q, k, v, pos, pos, True, window), (q, k, v))
-    _same_grads(got, want, 1e-5)
+    if dtype == "float32":
+        _same_grads(got, want, 1e-5)
+    else:
+        for a, b in zip(got, want):
+            assert a.dtype == b.dtype and a.shape == b.shape
+            assert _rel_l2(a, b) <= BWD_TOL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("K", [16, 64, 80, 120, 128])
+@pytest.mark.parametrize("mask", ["causal", "non_causal", "window", "per_row", "no_visible_key"])
+@pytest.mark.parametrize("G", [8, 2, 1])
+def test_flash_bwd_kernel_head_dims_masks(cuda_device, K, mask, G):
+    """The backward kernels at every head dim, causal or not, windowed,
+    with per-row positions over a cache with empty slots, and with rows
+    that see no key (dq 0, dv their 1/T share), against the kernels'
+    arithmetic in fp32 (ref.flash_attention_bwd_ref) on the same bf16
+    inputs and the forward kernel's output; the same bits twice."""
+    B, Sq, T, H = 2, 150, 150, 8
+    causal, window = mask != "non_causal", 40 if mask == "window" else None
+    dev = cuda_device
+    gen = torch.Generator(device=dev).manual_seed(K + G)
+    if mask == "per_row":
+        Sq = 7
+        q_pos = torch.stack([torch.arange(30, 37), torch.arange(100, 107)]).int().to(dev)
+        kv_pos = torch.where(torch.arange(T) < 120, torch.arange(T), -1).int().to(dev)
+    elif mask == "no_visible_key":
+        q_pos = (torch.arange(Sq) - 70).int().to(dev)  # 70 rows precede every key
+        kv_pos = torch.where(torch.arange(T) < 100, torch.arange(T), -1).int().to(dev)
+    else:
+        q_pos = kv_pos = torch.arange(T, dtype=torch.int32, device=dev)
+    q = torch.randn(B, Sq, H, K, generator=gen, device=dev).bfloat16()
+    k, v = (torch.randn(B, T, G, K, generator=gen, device=dev).bfloat16() for _ in range(2))
+    out = ops.flash_attention(q, k, v, q_pos, kv_pos, causal, window)
+    do = torch.randn(out.shape, generator=gen, device=dev).bfloat16()
+    got = ops._flash_attention_bwd_kernel(q, k, v, out, do, q_pos, kv_pos, causal, window)
+    again = ops._flash_attention_bwd_kernel(q, k, v, out, do, q_pos, kv_pos, causal, window)
+    torch.cuda.synchronize()
+    want = ref.flash_attention_bwd_ref(q.float(), k.float(), v.float(), out.float(), do.float(),
+                                       q_pos, kv_pos, causal, window)
+    for a, a2, b in zip(got, again, want):
+        assert a.dtype == torch.bfloat16 and torch.equal(a, a2)
+        assert _rel_l2(a, b) <= BWD_TOL
+    if mask == "no_visible_key":
+        assert float(got[0][:, :70].abs().max()) == 0.0
 
 
 @pytest.mark.cuda
