@@ -35,6 +35,7 @@ from torch.utils.checkpoint import checkpoint
 from ..configs.base import ArchConfig
 from ..parallel import opt_flags
 from ..parallel import sharding as sh
+from . import graphs
 from . import layers as L
 from . import mamba as M
 from . import moe as X
@@ -102,7 +103,20 @@ def _apply_sub(
 ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """One sub-layer; returns (h, aux), aux the MoE load-balance term of
     an ``moe`` ff and None for the others.  ``constrain`` places the
-    residual after each of the two adds."""
+    residual after each of the two adds.  An attention sub-layer of a
+    per-row decode step inside ``graphs.replaying`` replays its attention
+    and feed-forward (a mixture of experts: up to its input) as one CUDA
+    graph."""
+    g = None
+    if decode and mixer == "attn" and torch.is_tensor(cache_index) and cache_index.ndim == 1:
+        g = graphs.active(h, cache_index)
+    if g is not None:
+        key = ("sub", sub["ln1"].data_ptr(), cache["k"].data_ptr(), tuple(h.shape), h.dtype)
+        out = g.run(key, lambda h, index: _decode_half(sub, cfg, ff, h, index, cache), h, cache_index)
+        if ff != "moe":
+            return out[0], None
+        y, aux = X.apply_moe(sub["moe"], cfg, out[1])
+        return out[0] + y, aux
     y = L.rms_norm(h, sub["ln1"])
     if mixer == "attn":
         # prefill attends over its own k/v; decode over the cache
@@ -122,6 +136,24 @@ def _apply_sub(
         y, aux = X.apply_moe(sub["moe"], cfg, y)
         return constrain(h + y), aux
     return constrain(h + L.apply_mlp(sub["mlp"], cfg, y)), None
+
+
+def _decode_half(
+    sub: Params, cfg: ArchConfig, ff: str, h: torch.Tensor, index: torch.Tensor, cache: Params
+) -> Tuple[torch.Tensor, ...]:
+    """An attention sub-layer of a per-row decode step (rows at
+    ``index [B]``) on a plain tensor, as ``_apply_sub`` runs it: (h,), or
+    for a mixture of experts (h after attention, the experts' input)."""
+    y = L.rms_norm(h, sub["ln1"])
+    y, _ = L.apply_attention(sub["attn"], cfg, y, index.to(torch.int32)[:, None], cache=cache,
+                             cache_index=index, self_attend=False)
+    h = h + y
+    if ff == "none":
+        return (h,)
+    y = L.rms_norm(h, sub["ln2"])
+    if ff == "moe":
+        return h, y
+    return (h + L.apply_mlp(sub["mlp"], cfg, y),)
 
 
 def param_spec(cfg: ArchConfig) -> Spec:

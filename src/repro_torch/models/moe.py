@@ -15,21 +15,50 @@ Layouts: router ``[D, E]`` fp32 whatever ``cfg.dtype`` is; ``w_up``,
 On DTensors the slab is placed over the mesh (``_placed_route``,
 ``_placed_experts``: the same slots and outputs), or, under ``moe_a2a``,
 the expert-parallel ``apply_moe_shard_map`` runs.
+
+**Routing read-out** (``record_routing``): while a recorder is active,
+every routing call keeps its expert choices, slots and drops as device
+tensor references (no wait; a copy where the layer runs from CUDA graphs,
+whose buffers the next replay overwrites), tagged by the caller
+(``tag_routing``: the serving engine names each model call's kind and the
+request of each of its rows), so that a checker can replay them.  Later
+implementations of the layer keep this contract.  With no recorder active
+a routing call checks one flag.
+
+**Spans** (``repro_torch.spans``, kept only under an active profiler): a
+``moe.route`` span a layer (the whole layer: scores, top-k, slots,
+dispatch, experts, combine) with ``pairs`` (T K), and ``kept``, ``live``
+(experts holding a kept pair) and ``max_load`` (the most pairs that chose
+one expert) as 0-d device tensors, read after the window; inside it a
+``moe.experts`` span around the grouped products, with device stamps on a
+CUDA device.
+
+**CUDA graphs** (``models/graphs.py``, the serving engine's): inside
+``graphs.replaying`` (decode steps) a layer of plain CUDA tensors runs as
+three graphs a token count (``_Replayed``: routing and dispatch, the
+grouped products, the combine), the same kernels on the same inputs, with
+the spans and the read-out around the replays as above.  A graph captured
+around whole layers (the engine's prefills) lists its routing calls with
+``capture_routing`` and records copies of them with ``replayed`` after
+each replay; its layers open no spans when replayed.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, NamedTuple, Optional, Tuple
+import contextlib
+from typing import Any, Dict, Iterator, List, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 from torch.distributed.tensor.experimental import local_map
 
+from .. import spans
 from ..configs.base import ArchConfig
 from ..parallel import opt_flags
 from ..parallel.sharding import (
     axis_size, batch_axes, constrain, maybe, replicated, to_placements,
 )
+from . import graphs
 from . import layers as L
 
 Params = Dict[str, Any]
@@ -70,6 +99,96 @@ class Routing(NamedTuple):
     expert: torch.Tensor  # [T*K] the pair's slab: its expert, less the first routed one
 
 
+class Routed(NamedTuple):
+    """One routing call as a recorder keeps it."""
+
+    call: int  # its model call: one a ``tag_routing``, from 0 (-1 before the first)
+    layer: int  # its place among the call's routing calls, from 0
+    kind: str  # the call's kind as tagged ("prefill", "decode"; "" untagged)
+    rows: Tuple  # the request of each row of the call (None: a riding row)
+    top_i: torch.Tensor  # [T, K] the experts chosen, most probable first
+    slot: torch.Tensor  # [T*K] each pair's slot; the capacity where dropped
+    keep: torch.Tensor  # [T*K] bool, the pair got a slot
+
+
+class RoutingRecorder:
+    """The routing calls made while it is active (``records``)."""
+
+    def __init__(self):
+        self.records: List[Routed] = []
+        self._call, self._kind, self._rows, self._layer = -1, "", (), 0
+
+    def tag(self, kind: str, rows: Sequence) -> None:
+        """The routing calls that follow belong to a new model call of
+        ``kind`` whose row r serves request ``rows[r]``."""
+        self._call, self._kind, self._rows, self._layer = self._call + 1, kind, tuple(rows), 0
+
+    def clear(self) -> None:
+        """Drop what was recorded; the tags go on."""
+        self.records = []
+
+    def add(self, r: "Routing") -> None:
+        self.records.append(Routed(self._call, self._layer, self._kind, self._rows,
+                                   r.top_i, r.slot, r.keep))
+        self._layer += 1
+
+
+_RECORDER: Optional[RoutingRecorder] = None
+
+
+@contextlib.contextmanager
+def record_routing() -> Iterator[RoutingRecorder]:
+    """Record every routing call made inside the block; one recorder at a
+    time."""
+    global _RECORDER
+    if _RECORDER is not None:
+        raise RuntimeError("a routing recorder is already active")
+    _RECORDER = rec = RoutingRecorder()
+    try:
+        yield rec
+    finally:
+        _RECORDER = None
+
+
+def recording() -> bool:
+    return _RECORDER is not None
+
+
+_CAPTURED: Optional[List[Routing]] = None
+
+
+@contextlib.contextmanager
+def capture_routing() -> Iterator[List[Routing]]:
+    """Around the capture of a CUDA graph that routes: the routing calls
+    captured inside the block are listed (the graph's own tensors), and the
+    calls run eagerly to warm it up are not recorded.  After each replay,
+    ``replayed`` records copies of the listed calls."""
+    global _CAPTURED
+    if _CAPTURED is not None:
+        raise RuntimeError("a routing capture is already active")
+    _CAPTURED = got = []
+    try:
+        yield got
+    finally:
+        _CAPTURED = None
+
+
+def replayed(captured: Sequence[Routing]) -> None:
+    """Record a replayed graph's routing calls (``capture_routing``'s list)
+    as copies, since the next replay overwrites the graph's tensors;
+    nothing without an active recorder."""
+    if _RECORDER is not None:
+        for r in captured:
+            _RECORDER.add(r._replace(top_i=r.top_i.clone(), slot=r.slot.clone(), keep=r.keep.clone()))
+
+
+def tag_routing(kind: str, rows: Sequence) -> None:
+    """Tag the routing calls that follow (``RoutingRecorder.tag``); nothing
+    without an active recorder."""
+    if _RECORDER is not None:
+        _RECORDER.tag(kind, rows)
+
+
 def _scores(router: torch.Tensor, cfg: ArchConfig, xt: torch.Tensor):
     """(probs [T, E], top_p [T, K] renormalised, top_i [T, K])."""
     probs = torch.softmax(xt.float() @ router, dim=-1)
@@ -87,8 +206,18 @@ def route(
     (first, count) routes to those experts alone (a rank's own under
     expert parallelism): a pair to any other is dropped, and slabs are
     numbered from ``first``.  On DTensors, ``_placed_route``."""
-    if isinstance(xt, DTensor):
-        return _placed_route(router, cfg, xt)
+    r = _placed_route(router, cfg, xt) if isinstance(xt, DTensor) else _route(router, cfg, xt, experts)
+    if _CAPTURED is not None:
+        if torch.cuda.is_current_stream_capturing():
+            _CAPTURED.append(r)
+    elif _RECORDER is not None:
+        _RECORDER.add(r)
+    return r
+
+
+def _route(router: torch.Tensor, cfg: ArchConfig, xt: torch.Tensor,
+           experts: Optional[Tuple[int, int]] = None) -> Routing:
+    """``route`` of a plain tensor, unrecorded."""
     T = xt.shape[0]
     E, K = cfg.n_experts, cfg.top_k
     C = moe_capacity(cfg, T)
@@ -113,6 +242,18 @@ def _positions(e: torch.Tensor, E: int) -> Tuple[torch.Tensor, torch.Tensor]:
     pos = torch.empty_like(e)
     pos[order] = torch.arange(e.numel(), device=e.device) - (count.cumsum(0) - count)[e[order]]
     return pos, count
+
+
+COUNTED = ("kept", "live", "max_load")
+
+
+def _counts(r: Routing) -> torch.Tensor:
+    """The ``moe.route`` span's device counters (``COUNTED``) of a routing
+    over every expert, stacked: ``kept`` pairs (an expert keeps min(its
+    pairs, C)), ``live`` experts (any with a pair: slot 0 is always kept)
+    and ``max_load``."""
+    kept = torch.clamp(r.load, max=r.capacity)
+    return torch.stack([kept.sum(), (kept > 0).sum(), r.load.max()])
 
 
 def _aux(r: Routing, cfg: ArchConfig) -> torch.Tensor:
@@ -157,14 +298,18 @@ def _swiglu(buf: torch.Tensor, w_up, w_gate, w_down) -> torch.Tensor:
     return torch.bmm(F.silu(gate) * up, w_down)
 
 
-def _experts(p: Params, xt: torch.Tensor, r: Routing, n_slabs: int) -> torch.Tensor:
+def _experts(p: Params, xt: torch.Tensor, r: Routing, n_slabs: int,
+             span: Optional[spans.Span] = None) -> torch.Tensor:
     """Dispatch, grouped SwiGLU and combine: ``[T, D]``, each token's kept
-    pairs' expert outputs weighted and summed.  On DTensors,
+    pairs' expert outputs weighted and summed; the products in a
+    ``moe.experts`` span inside ``span``.  On DTensors,
     ``_placed_experts``."""
     if isinstance(xt, DTensor):
         return _placed_experts(p, xt, r)
     buf = _dispatch(xt, r.expert, r.slot, r.keep, 0, n_slabs, r.capacity)
+    part = spans.begin("moe.experts", span, device=xt.is_cuda)
     out = _swiglu(buf, p["w_up"], p["w_gate"], p["w_down"])
+    spans.end(part)
     return _combine(out, r.expert, r.slot, r.keep, r.top_p, 0)
 
 
@@ -283,11 +428,69 @@ def apply_moe(p: Params, cfg: ArchConfig, x: torch.Tensor) -> Tuple[torch.Tensor
     if isinstance(x, DTensor):  # tokens over the batch axes, whole on `model`
         x = constrain(x, (batch_axes(x.device_mesh, B), None, None))
     xt = x.reshape(B * S, D)
+    span = spans.begin("moe.route", pairs=B * S * cfg.top_k)
+    g = graphs.active(xt)
+    if g is not None:
+        layer = g.get(("moe", p["router"].data_ptr(), tuple(xt.shape), xt.dtype),
+                      lambda store: _Replayed(p, cfg, xt, store))
+        y, aux = layer(xt, span)
+        spans.end(span)
+        return y.view(B, S, D), aux
     r = route(p["router"], cfg, xt)
-    y = _experts(p, xt, r, cfg.n_experts).view(B, S, D)
+    if span is not None and not isinstance(xt, DTensor):
+        span.attrs.update(zip(COUNTED, _counts(r).unbind()))
+    y = _experts(p, xt, r, cfg.n_experts, span).view(B, S, D)
     if rows is not None:  # placed as its input: its gradient comes back gathered, not
         y = y.redistribute(y.device_mesh, rows)  # split on S, which 2.11 cannot view as (B*S, D)
-    return y, _aux(r, cfg)
+    aux = _aux(r, cfg)
+    spans.end(span)
+    return y, aux
+
+
+class _Replayed:
+    """A layer of plain CUDA tensors at one token count as three CUDA
+    graphs: routing, dispatch and the span's counters; the grouped
+    products; the combine and aux.  The ``moe.experts`` span's device
+    stamps and the routing read-out sit between the replays."""
+
+    def __init__(self, p: Params, cfg: ArchConfig, xt: torch.Tensor, store: graphs.Graphs):
+        self.x = xt.clone()
+
+        def routed() -> Tuple[Routing, torch.Tensor, torch.Tensor]:
+            r = _route(p["router"], cfg, self.x)
+            return r, _dispatch(self.x, r.expert, r.slot, r.keep, 0, cfg.n_experts, r.capacity), _counts(r)
+
+        def experts(buf: torch.Tensor) -> torch.Tensor:
+            return _swiglu(buf, p["w_up"], p["w_gate"], p["w_down"])
+
+        def combined(r: Routing, out: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+            return _combine(out, r.expert, r.slot, r.keep, r.top_p, 0), _aux(r, cfg)
+
+        with store.warm():
+            r, buf, _ = routed()
+            combined(r, experts(buf))
+        self.route, self.experts, self.combine = (torch.cuda.CUDAGraph() for _ in range(3))
+        with store.capture(self.route):
+            self.r, self.buf, self.counts = routed()
+        with store.capture(self.experts):
+            self.out = experts(self.buf)
+        with store.capture(self.combine):
+            self.y, self.aux = combined(self.r, self.out)
+
+    def __call__(self, xt: torch.Tensor, span: Optional[spans.Span]) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(the layer's output ``[T, D]``, aux), both the graphs' own
+        buffers, for tokens ``xt``; the experts' products in a
+        ``moe.experts`` span inside ``span``."""
+        self.x.copy_(xt)
+        self.route.replay()
+        if span is not None:
+            span.attrs.update(zip(COUNTED, self.counts.clone().unbind()))
+        replayed((self.r,))
+        part = spans.begin("moe.experts", span, device=True)
+        self.experts.replay()
+        spans.end(part)
+        self.combine.replay()
+        return self.y, self.aux
 
 
 # --------------------------------------------------------------------------

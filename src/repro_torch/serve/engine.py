@@ -24,6 +24,22 @@ While a profiler is active ``generate`` records its spans
 (``repro_torch.spans``): one ``serve.request`` a request, from its arrival
 in ``generate`` to its retirement; each solo ``serve.prefill`` and its
 ``serve.insert_row``; each step's ``serve.sample`` and ``serve.decode``.
+While a routing recorder is active (``moe.record_routing``) each model
+call tags its routing calls (``moe.tag_routing``): a prefill ``"prefill"``
+with its one request's id, a decode step ``"decode"`` with the request id
+of each row, None for a row that rides along retired or empty.
+
+With ``cuda_graphs`` on a CUDA device the model calls replay CUDA graphs
+(``models.graphs``), the same kernels on the same inputs, so that the
+host's launches no longer set their pace: a decode step each attention
+sub-layer and each mixture-of-experts layer, captured at the first step
+of a batch width; a prefill the whole model call, captured at the first
+prompt of its length (up to ``PREFILL_GRAPHS`` lengths; longer-tailed
+traffic prefills the other lengths eagerly).  The graphs hold the
+caches' pointers, so the engine keeps one batch cache a width and one
+one-row prefill cache, cleared before each use as a new one would be.
+The routing read-out is kept (copies of the graphs' tensors); a replayed
+prefill opens no spans inside ``serve.forward``.
 """
 from __future__ import annotations
 
@@ -36,6 +52,7 @@ import torch
 
 from .. import spans
 from ..configs.base import ArchConfig
+from ..models import graphs, moe
 from ..models.model import Model, Params
 
 
@@ -50,6 +67,9 @@ class Request:
     truncated: bool = False  # budget was capped (overflow="truncate")
 
 
+PREFILL_GRAPHS = 64  # prompt lengths whose prefills replay a graph
+
+
 class ServeEngine:
     def __init__(
         self,
@@ -61,6 +81,7 @@ class ServeEngine:
         batch_size: int = 8,
         overflow: str = "error",  # or "truncate"
         device: Union[str, torch.device] = "cuda",
+        cuda_graphs: bool = False,
     ):
         if cfg.sliding_window is not None:
             raise NotImplementedError(
@@ -81,6 +102,11 @@ class ServeEngine:
         self.batch_size = batch_size
         self.overflow = overflow
         self._rng = np.random.default_rng(seed)
+        cuda = cuda_graphs and self.device.type == "cuda"
+        # the decode steps' graphs and the prefills', each store in one memory pool
+        self._graphs = graphs.Graphs() if cuda else None
+        self._prefills = graphs.Graphs() if cuda else None
+        self._caches: Dict[Tuple[str, int, torch.dtype], Params] = {}  # kept for the graphs
         # Host seconds of each prefill and decode call of the last
         # generate(), logits readback (which waits for the device) included:
         # the serve.prefill and serve.decode spans' durations.
@@ -142,6 +168,21 @@ class ServeEngine:
                     t[:, row] = r[:, 0]
         return cache
 
+    def _cache(self, use: str, B: int, dt: torch.dtype) -> Params:
+        """An empty cache of ``B`` rows for ``use`` ("prefill", "batch"): a
+        new one, or with graphs the engine's own, cleared as ``init_cache``
+        makes it."""
+        if self._graphs is None:
+            return self.model.init_cache(B, self.max_len, dtype=dt)
+        cache = self._caches.get((use, B, dt))
+        if cache is None:
+            cache = self._caches[(use, B, dt)] = self.model.init_cache(B, self.max_len, dtype=dt)
+        else:
+            for leaves in cache.values():
+                for name, t in leaves.items():
+                    t.fill_(-1 if name == "pos" else 0)
+        return cache
+
     def _logits_to_host(self, logits: torch.Tensor) -> np.ndarray:
         return logits[:, 0, :].float().cpu().numpy()
 
@@ -155,10 +196,23 @@ class ServeEngine:
         )
         part = spans.begin("serve.cache_init", call)
         tokens = torch.tensor([r.prompt], dtype=torch.int32, device=self.device)
-        cache = self.model.init_cache(1, self.max_len, dtype=dt)
+        cache = self._cache("prefill", 1, dt)
         spans.end(part)
         part = spans.begin("serve.forward", call)
-        logits, cache = self.model.prefill(self.params, {"tokens": tokens}, cache)
+        key = (len(r.prompt), dt)
+        if self._prefills is None or (key not in self._prefills and len(self._prefills) >= PREFILL_GRAPHS):
+            logits, cache = self.model.prefill(self.params, {"tokens": tokens}, cache)
+        else:
+            def build(store):
+                with moe.capture_routing() as routed:
+                    got = graphs.Captured(
+                        lambda t: self.model.prefill(self.params, {"tokens": t}, cache)[:1], (tokens,), store)
+                    self._cache("prefill", 1, dt)  # the warm-up wrote it
+                return got, routed
+
+            got, routed = self._prefills.get(key, build)
+            (logits,) = got.replay((tokens,))
+            moe.replayed(routed)
         spans.end(part)
         return self._read_back(logits, call, t0, "prefill")[0], cache
 
@@ -172,10 +226,11 @@ class ServeEngine:
         if call is not None:  # row b's attention visits its keys at slots 0..pos[b]
             call.attrs["keys"] = int(pos.sum()) + len(pos)
         part = spans.begin("serve.forward", call)
-        logits, cache = self.model.decode_step(
-            self.params, cache,
-            torch.from_numpy(tok).to(self.device), torch.from_numpy(pos).to(self.device),
-        )
+        with graphs.replaying(self._graphs):
+            logits, cache = self.model.decode_step(
+                self.params, cache,
+                torch.from_numpy(tok).to(self.device), torch.from_numpy(pos).to(self.device),
+            )
         spans.end(part)
         return self._read_back(logits, call, t0, "decode"), cache
 
@@ -205,7 +260,7 @@ class ServeEngine:
         pending = deque(range(len(requests)))
         B = max(1, min(batch_size or self.batch_size, len(requests)))
         dt = self.cache_dtype()
-        cache = self.model.init_cache(B, self.max_len, dtype=dt)
+        cache = self._cache("batch", B, dt)
         row_req: List[Optional[int]] = [None] * B  # request index per row
         row_pos = np.zeros(B, dtype=np.int64)  # next write position
         tok = np.zeros((B, 1), dtype=np.int32)
@@ -218,6 +273,7 @@ class ServeEngine:
                 if row_req[b] is None and pending:
                     ri = pending.popleft()
                     r = requests[ri]
+                    moe.tag_routing("prefill", (r.request_id,))
                     last[b], row_cache = self._prefill(r, dt)
                     part = spans.begin("serve.insert_row", request_id=r.request_id)
                     self.insert_row(cache, row_cache, b)
@@ -252,6 +308,9 @@ class ServeEngine:
             # Retired rows ride along as dummies (their stale token at a
             # clamped position): writes stay confined to their own cache
             # row and are replaced wholesale on refill.
+            if moe.recording():
+                moe.tag_routing("decode", [None if ri is None else requests[ri].request_id
+                                           for ri in row_req])
             arr, cache = self._decode(
                 cache, tok, np.minimum(row_pos, self.max_len - 1).astype(np.int32)
             )

@@ -17,7 +17,8 @@ starts a new session and clears the buffer, so after a profiled window
 With no profiler active ``begin`` checks one flag and returns None, and
 ``end(None)`` returns at once: no span, no CUDA event.
 
-Spans the port opens (``serve/engine.py``, ``train/train_step.py``):
+Spans the port opens (``serve/engine.py``, ``train/train_step.py``,
+``models/moe.py``):
 ``serve.request`` (``request_id``; ``first_token``, the stamp of its first
 sampled token), ``serve.prefill`` (``request_id``, ``prompt_len``) with
 ``serve.cache_init``, ``serve.forward`` and ``serve.readback`` in it,
@@ -26,7 +27,11 @@ rows), ``serve.decode`` (``rows``: the batch; ``keys``: the cached keys the
 decode attention visits, over every row) with ``serve.forward`` and
 ``serve.readback`` in it; ``train.step`` with ``train.forward``,
 ``train.backward`` (one each a microbatch) and ``train.adamw`` in it, all
-three with device stamps on a CUDA device.
+three with device stamps on a CUDA device; ``models/moe.py``: ``moe.route``
+(``pairs``; ``kept``, ``live``, ``max_load`` as 0-d device tensors) a
+mixture-of-experts layer, with ``moe.experts`` in it (device stamps on a
+CUDA device); none inside a model call replayed whole from a CUDA graph
+(``ServeEngine``'s prefills with ``cuda_graphs``).
 """
 from __future__ import annotations
 
